@@ -32,7 +32,22 @@ Phases (one line each; any failure exits nonzero):
              illuminations, checked as in phase 4, B4 and B1 launched and
              B2 not; rasterize() once; then their ms/frame (20 warm
              frames), B4 and the B3 route against their plain versions at
-             torus262k@1024², and both routes' binning at sphere16k@1024².
+             torus262k@1024², and both routes' binning at sphere16k@1024²;
+7. sweep   — the multi-view path: an 8-view turntable of sphere16k at
+             1024² through Renderer.render_sequence with GuroIllumination
+             and NoIllumination at view_batch 1, 2, 4 and 8 (1, 2 and 4 on
+             the sort route, 8 on the counting route: 16,384 stacked
+             tiles), fast shade at 1 and 4; every view equal to its
+             view_batch=1 render and to render_frame on the same posed
+             arrays, B1 launched N/V times a sweep, one view_batch=8
+             sweep equal to the plain path; B1's view-batched launch
+             against its plain version at view_batch 2 (bit-equal); then
+             ms per view per view_batch (CUDA events over the sweep / N);
+8. b5      — B5 (csrc/binsort_grouped.cu, on no render path) against its
+             plain version on sphere16k@1024²'s spans, group 16, sub 8, at
+             an ample and an undersized slot_cap: bit-equal in every
+             output, equal to itself on a second run; its time and the
+             plain version's.
 
 The next-to-last lines are the nvidia-smi name/power-limit line and one
 JSON object with the kernels' launch counts, errors and times; the last
@@ -47,6 +62,7 @@ import time
 
 SIZE = 1024
 FOV = 45
+DEVICE = "cuda"
 WARM_FRAMES = 60
 # Mismatch bounds used only if a kernel is not bit-equal to its plain
 # version (tests_tpu/test_tpu_parity.py:49-54, T-Rex row): fraction of
@@ -54,10 +70,18 @@ WARM_FRAMES = 60
 Z_FRAC_MAX, COLOR_FRAC_MAX = 5e-5, 1.5e-4
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
-KERNEL_SOURCES = ("sort", "raster", "binsort")
+KERNEL_SOURCES = ("sort", "raster", "binsort", "binsort_grouped")
 # the un-grouped (counting-sort) path: frames past grouped_limits_ok
 LARGE_FRAMES = (("sphere16k", 2048), ("torus262k", 1024), ("torus262k", 4096))
 LARGE_WARM_FRAMES = 20
+# the multi-view sweep: N views of the centred sphere16k, one unit deeper
+# than fit_model puts it (the bench.py pose of the unit spheres)
+SWEEP_VIEWS = 8
+SWEEP_BATCHES = (1, 2, 4, 8)
+FAST_BATCHES = (1, 4)
+SWEEP_SHIFT = (0.0, 0.0, 2.0)
+SWEEP_REPS = 10
+B5_GROUP, B5_SUB = 16, 8
 
 
 class SmokeFailure(Exception):
@@ -418,7 +442,7 @@ def make_renderer(illum, backend="auto", size=SIZE):
     from cython3dmodelrenderer_tpu_torch import (AdvancedPixelBufferFiller,
                                                  Renderer, SimpleIterator)
 
-    filler = AdvancedPixelBufferFiller(size, size, fov=FOV, device="cuda",
+    filler = AdvancedPixelBufferFiller(size, size, fov=FOV, device=DEVICE,
                                        backend=backend)
     return Renderer(filler, illum, SimpleIterator, size, size,
                     generator=torch.Generator())
@@ -644,6 +668,238 @@ def phase_timing_large(scenes, results, inputs, light):
     return frame_ms, kt
 
 
+def turntable_model(device):
+    """sphere16k in the README rotation, centred and unit-scaled without
+    fit_model's z shift: the sweep poses it."""
+    from cython3dmodelrenderer_tpu_torch import Model
+
+    v, f = displaced_sphere(TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS)
+    model = Model(v, f, device=device)
+    model.rotate([-90, 180, 0])
+    model.rotate([10, -80, 0])
+    model.shift(-model.get_mean_vertex())
+    model.scale(1.0 / model.get_max_span())
+    return model
+
+
+def sweep_args(renderer, model, vb, fast=False):
+    renderer.generator.manual_seed(7)
+    return dict(model=model, angles=sweep_angles(), shifts=sweep_shifts(),
+                view_batch=vb, fast_shade=fast)
+
+
+def sweep_angles():
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    return multiview.turntable_angles(SWEEP_VIEWS)
+
+
+def sweep_shifts():
+    import numpy as np
+
+    return np.broadcast_to(np.float32(SWEEP_SHIFT), (SWEEP_VIEWS, 3))
+
+
+def phase_sweep(model, light):
+    """The multi-view path through ``Renderer.render_sequence``."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
+    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
+                                                            render_frame)
+    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
+    runs = [(iname, vb, False) for iname, _ in illums for vb in SWEEP_BATCHES]
+    runs += [("guro", vb, True) for vb in FAST_BATCHES]
+    renderers = {iname: make_renderer(illum) for iname, illum in illums}
+    counters = (raster_tiles, sort_i32, bin_sort)
+    results, per_sweep = {}, {}
+    for c in counters:
+        c.launches = 0
+    for iname, vb, fast in runs:                    # the sweep path's run
+        before = [c.launches for c in counters]
+        results[(iname, vb, fast)] = renderers[iname].render_sequence(
+            **sweep_args(renderers[iname], model, vb, fast))
+        per_sweep[(iname, vb, fast)] = [c.launches - b
+                                        for c, b in zip(counters, before)]
+    torch.cuda.synchronize()
+    launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches,
+                "binsort": bin_sort.launches,
+                "raster_batched": sum(n[0] for (_i, vb, _f), n in
+                                      per_sweep.items() if vb > 1)}
+
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    gen = torch.Generator().manual_seed(7)
+    colors = torch.randint(256, (model.n_triangles(), 3), generator=gen)
+    colors = colors.to(DEVICE, torch.float32)[:, None, :].expand(-1, 3, 3)
+    colors = colors.contiguous()
+    tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+    posed = [multiview._pose_triangles(tv, tn, a, s)
+             for a, s in zip(sweep_angles(), sweep_shifts())]
+    for (iname, vb, fast), imgs in results.items():
+        tag = f"{iname} view_batch={vb}{' fast' if fast else ''}"
+        require(imgs.shape == (SWEEP_VIEWS, SIZE, SIZE, 3)
+                and imgs.dtype == torch.uint8, f"sweep {tag}: {imgs.shape}")
+        require(torch.equal(imgs, results[(iname, 1, fast)]),
+                f"sweep {tag}: differs from view_batch=1")
+        n_b1, n_b2, n_b4 = per_sweep[(iname, vb, fast)]
+        require(n_b1 == SWEEP_VIEWS // vb,
+                f"sweep {tag}: B1 launched {n_b1} times, not N/V")
+        want_route = (0, 1) if vb == 8 else (SWEEP_VIEWS // vb, 0)
+        require((n_b2, n_b4) == want_route,
+                f"sweep {tag}: B2/B4 launches {(n_b2, n_b4)}, want {want_route}")
+        lit = float((imgs.amax(-1) > 0).float().mean())
+        require(lit > 0.05, f"sweep {tag}: frames are empty ({lit})")
+        say("sweep", f"{tag}: == view_batch=1, B1 x{n_b1}, B2 x{n_b2}, "
+            f"B4 x{n_b4}, {lit:.4f} of pixels lit")
+    for iname, fast in (("guro", False), ("none", False), ("guro", True)):
+        post = ("fast_lambert_u8" if fast else
+                "lambert_u8" if iname == "guro" else "u8")
+        for v, (pv, pn) in enumerate(posed):
+            img = render_frame(pv, pn, colors, config, post=post,
+                               light=light if iname == "guro" else None,
+                               backend="cuda", group=16)[1]
+            require(torch.equal(img, results[(iname, 1, fast)][v]),
+                    f"sweep {iname} {post} view {v}: != render_frame")
+        say("sweep", f"{iname} {post}: all {SWEEP_VIEWS} views == render_frame "
+            "on the same posed arrays")
+    plain = make_renderer(GuroIllumination([0, 0, 1]), "torch")
+    ref = plain.render_sequence(**sweep_args(plain, model, SWEEP_VIEWS))
+    torch.cuda.synchronize()
+    require(torch.equal(ref, results[("guro", SWEEP_VIEWS, False)]),
+            "sweep guro view_batch=8: kernel sweep != plain-path sweep")
+    say("sweep", f"guro view_batch={SWEEP_VIEWS}: == plain-path sweep")
+    require(launches["raster_batched"] > 0 and launches["sort"] > 0
+            and launches["binsort"] > 0,
+            f"a kernel was not launched on the sweep path: {launches}")
+    say("sweep", f"kernel launches on the sweep path: {launches}")
+    return launches, renderers, colors
+
+
+def sweep_batch_inputs(model, colors, post, vb=2):
+    """The stacked rows and bins B1 gets from a view_batch=vb sweep batch."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    rows, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+        model.vertices_by_triangles, model.normals_by_triangles, colors,
+        sweep_angles()[:vb], sweep_shifts()[:vb], config, lean=post == "u8")
+    ntx, nty = SIZE // raster.TILE_W, SIZE // raster.TILE_H
+    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
+                             16, "cuda", vb)
+    kw = dict(rows=rows, ntx=ntx, nty=nty, height=SIZE, width=SIZE,
+              n_attrs=3 if post == "u8" else 6, z_init=config.z_init,
+              n_views=vb)
+    return with_bins(kw, bins)
+
+
+def phase_kernels_sweep(model, colors, light):
+    """B1's view-batched launch against its plain version (view_batch 2)."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
+                                                            raster_tiles_plain)
+
+    err = 0.0
+    for post in ("none", "u8", "lambert_u8"):
+        kw = sweep_batch_inputs(model, colors, post)
+        opts = dict(light=light if post == "lambert_u8" else None,
+                    gbuffer=post == "none", image=post != "none")
+        g_k, i_k = raster_tiles(**kw, **opts)
+        g_p, i_p = raster_tiles_plain(**kw, **opts)
+        torch.cuda.synchronize()
+        pairs = list(zip(g_k, g_p)) if post == "none" else [(i_k, i_p)]
+        err = max([err] + [float((a.float() - b.float()).abs().max())
+                           for a, b in pairs])
+        require(all(torch.equal(a, b) for a, b in pairs),
+                f"B1 view-batched {post}: differs from the plain version")
+        say("kernels", f"B1 view-batched (2 views) sphere16k {post}: bit-equal "
+            f"({int(kw['pair_tri'].numel())} pairs)")
+    return err
+
+
+def phase_timing_sweep(renderers, model, colors, light, frame_ms):
+    """ms per view of each sweep (CUDA events over the sweep / N) beside
+    the single-frame ms/frame, and B1 view-batched against its plain
+    version at view_batch 2."""
+    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
+                                                            raster_tiles_plain)
+
+    out = {}
+    for iname, renderer in renderers.items():
+        single = frame_ms[f"sphere16k/{iname}"]["median_event_ms"]
+        for vb in SWEEP_BATCHES:
+            args = sweep_args(renderer, model, vb)
+            ms = time_cuda(lambda: renderer.render_sequence(**args), SWEEP_REPS)
+            out[f"sweep_{iname}_vb{vb}"] = ms / SWEEP_VIEWS
+            say("timing", f"sweep {iname} view_batch={vb}: "
+                f"{ms / SWEEP_VIEWS:.4f} ms/view ({SWEEP_VIEWS} views, median "
+                f"of {SWEEP_REPS} sweeps, CUDA events); single frame "
+                f"{single:.4f} ms/frame")
+    for vb in FAST_BATCHES:
+        args = sweep_args(renderers["guro"], model, vb, fast=True)
+        ms = time_cuda(lambda: renderers["guro"].render_sequence(**args),
+                       SWEEP_REPS)
+        out[f"sweep_guro_fast_vb{vb}"] = ms / SWEEP_VIEWS
+        say("timing", f"sweep guro fast view_batch={vb}: "
+            f"{ms / SWEEP_VIEWS:.4f} ms/view")
+    kw = sweep_batch_inputs(model, colors, "lambert_u8")
+    opts = dict(light=light, gbuffer=False, image=True)
+    kt = (time_cuda(lambda: raster_tiles(**kw, **opts), 100),
+          time_cuda(lambda: raster_tiles_plain(**kw, **opts), 10))
+    say("timing", f"B1 view-batched (2 views, lambert_u8, "
+        f"{int(kw['pair_tri'].numel())} pairs): kernel {kt[0]:.4f} ms, plain "
+        f"{kt[1]:.4f} ms")
+    return out, kt
+
+
+def phase_b5(scenes):
+    """B5 against its plain version at sphere16k@1024²'s spans."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.ops.binsort_grouped import (
+        bin_sort_grouped, bin_sort_grouped_plain)
+
+    tx0, cx, ty0, cy, ntx, nty, total = frame_setup(scenes["sphere16k"],
+                                                    "lambert_u8", SIZE)[1]
+    spans = (tx0, cx, ty0, cy, ntx, nty)
+    demand = int(bin_sort_grouped_plain(*spans, 1 << 16, B5_GROUP, B5_SUB)[6])
+    caps = (("ample", demand), ("undersized", 128 * (total // 256)))
+    bin_sort_grouped.launches = 0                   # B5's own run
+    runs = [bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB) for _t, cap in caps]
+    torch.cuda.synchronize()
+    launches = bin_sort_grouped.launches
+    require(launches > 0, "B5 was not launched")
+    err = 0
+    for (tag, cap), got in zip(caps, runs):
+        again = bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB)
+        want = bin_sort_grouped_plain(*spans, cap, B5_GROUP, B5_SUB)
+        torch.cuda.synchronize()
+        err = max([err] + [int((a - b).abs().max()) for a, b in zip(got, want)])
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"B5 {tag}: differs from the plain version")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"B5 {tag}: two runs differ")
+        placed = int((got[0] != tx0.shape[0]).sum())
+        require(0 < placed <= min(total, cap), f"B5 {tag}: {placed} placed")
+        say("b5", f"bin_sort_grouped {tag} (slot_cap {cap}, {total} pairs, "
+            f"{placed} placed, total_slots {int(got[6])}): bit-equal to plain "
+            "in every output, deterministic")
+    cap = caps[0][1]
+    kt = (time_cuda(lambda: bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB), 50),
+          time_cuda(lambda: bin_sort_grouped_plain(*spans, cap, B5_GROUP,
+                                                   B5_SUB), 50))
+    say("timing", f"B5 bin_sort_grouped sphere16k@{SIZE} ({total} pairs, "
+        f"slot_cap {cap}): kernel {kt[0]:.4f} ms, plain {kt[1]:.4f} ms")
+    return launches, err, kt
+
+
 def main():
     try:
         import torch
@@ -671,10 +927,18 @@ def main():
         large_launches, large_results = phase_large(large)
         large_ms, large_kt = phase_timing_large(large, large_results,
                                                 large_inputs, light)
+        tt_model = turntable_model(DEVICE)
+        sweep_launches, sweep_renderers, sweep_colors = phase_sweep(tt_model,
+                                                                    light)
+        sweep_err = phase_kernels_sweep(tt_model, sweep_colors, light)
+        sweep_ms, sweep_kt = phase_timing_sweep(sweep_renderers, tt_model,
+                                                sweep_colors, light, frame_ms)
+        b5_launches, b5_err, b5_kt = phase_b5(scenes)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     frame_ms.update(large_ms)
+    frame_ms["sweep_ms_per_view"] = sweep_ms
     frame_ms["binning_routes_sphere16k@1024"] = {
         "counting_sort_ms": large_kt["routes_sphere16k@1024"][0],
         "sort_searchsorted_ms": large_kt["routes_sphere16k@1024"][1]}
@@ -699,6 +963,17 @@ def main():
          "replaces": "cython3dmodelrenderer_tpu/ops/raster_pallas.py:142",
          "launches": large_launches["raster"], "max_abs_err": b3_err,
          "ms": large_kt["b3_route"][0], "plain_ms": large_kt["b3_route"][1]},
+        {"name": "raster_tiles view-batched (B1/B3 tiles_per_view)",
+         "route": "cuda",
+         "source": "cython3dmodelrenderer_tpu_torch/csrc/raster.cu",
+         "replaces": "cython3dmodelrenderer_tpu/ops/raster_pallas.py:293",
+         "launches": sweep_launches["raster_batched"],
+         "max_abs_err": sweep_err, "ms": sweep_kt[0], "plain_ms": sweep_kt[1]},
+        {"name": "bin_sort_grouped (B5)", "route": "cuda",
+         "source": "cython3dmodelrenderer_tpu_torch/csrc/binsort_grouped.cu",
+         "replaces": "cython3dmodelrenderer_tpu/ops/binsort_pallas.py:106",
+         "launches": b5_launches, "max_abs_err": b5_err, "ms": b5_kt[0],
+         "plain_ms": b5_kt[1]},
     ]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(smi, flush=True)

@@ -9,6 +9,14 @@
 // image order. None of that is needed here:
 //
 //  * one block per 16x32 tile, one thread per pixel (512 threads);
+//  * view batching (the counterpart of the TPU kernels' tiles_per_view):
+//    the grid may stack n_views frames' tiles, block b rendering tile
+//    b % tiles_per_view of view b / tiles_per_view. Pixel coordinates and
+//    every plane test are view-relative; the block writes at offset
+//    view * H * W of (V, H, W, C) outputs. Each view's bins hold only its
+//    own triangles, so no block reads another view's rows (the JAX
+//    kernels needed a stacked y-bbox because a chunk tail could). With
+//    n_views == 1 the launch is the single-view one, bit for bit;
 //  * the block walks its tile's bin — the sorted (tile, triangle) pair list
 //    gives each tile a contiguous run of triangle ids in ascending order —
 //    in chunks of 128 candidates. For each chunk the block reads
@@ -66,18 +74,21 @@ raster_kernel(const float* __restrict__ rows, int row_w,
               const int* __restrict__ pair_tri,
               const int* __restrict__ tile_starts,
               const int* __restrict__ tile_counts,
-              int ntx, int height, int width, int n_attrs, float z_init,
+              int ntx, int tiles_per_view, int height, int width,
+              int n_attrs, float z_init,
               int shade, float lx, float ly, float lz,
               float* __restrict__ color, float* __restrict__ zbuf,
               float* __restrict__ normal, uint8_t* __restrict__ image) {
   __shared__ float s_geom[kChunk * kGeom];
   __shared__ int s_tri[kChunk];
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x;              // stacked (view, local tile) id
+  const int view = tile / tiles_per_view;
+  const int local = tile - view * tiles_per_view;
   const int ix = threadIdx.x % kTileW;
   const int iy = threadIdx.x / kTileW;
-  const int x = (tile % ntx) * kTileW + ix;
-  const int y = (tile / ntx) * kTileH + iy;
+  const int x = (local % ntx) * kTileW + ix;
+  const int y = (local / ntx) * kTileH + iy;
   const float px = static_cast<float>(x);
   const float py = static_cast<float>(y);
   const int start = tile_starts[tile];
@@ -125,7 +136,7 @@ raster_kernel(const float* __restrict__ rows, int row_w,
       if (ch < n_attrs) a[ch] = __fadd_rn(eval_plane(r + 3 * ch, px, py), 0.0f);
     }
   }
-  const size_t pix = static_cast<size_t>(y) * width + x;
+  const size_t pix = (static_cast<size_t>(view) * height + y) * width + x;
   if (zbuf != nullptr) {
     zbuf[pix] = has ? best_z : z_init;
     for (int c = 0; c < 3; ++c) {
@@ -163,24 +174,30 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rasterize an (nty x ntx)-tile frame on `stream`. rows: (T, row_w) f32
-// plane rows; pair_tri: the sorted pairs' triangle ids; tile_starts /
-// tile_counts: each tile's run in pair_tri. color/zbuf/normal (all set or
-// all null) receive the G-buffer, image (or null) the u8 BGR image.
-// Returns a cudaError_t code (0 = launched).
+// Rasterize n_views stacked (nty x ntx)-tile frames on `stream`. rows:
+// (T, row_w) f32 plane rows; pair_tri: the sorted pairs' triangle ids;
+// tile_starts / tile_counts: each (view, tile) run in pair_tri, view-major.
+// color/zbuf/normal (all set or all null) receive the (V, H, W, C)
+// G-buffer, image (or null) the (V, H, W, 3) u8 BGR image. Returns a
+// cudaError_t code (0 = launched).
 int raster_launch(const float* rows, int row_w, const int* pair_tri,
                   const int* tile_starts, const int* tile_counts,
-                  int ntx, int nty, int height, int width, int n_attrs,
+                  int ntx, int nty, int n_views, int height, int width,
+                  int n_attrs,
                   float z_init, int shade, float lx, float ly, float lz,
                   float* color, float* zbuf, float* normal, uint8_t* image,
                   int device, void* stream) {
   if (n_attrs != 3 && n_attrs != 6) return static_cast<int>(cudaErrorInvalidValue);
   if (row_w < kAttr0 + 3 * n_attrs) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_views < 1 || static_cast<long long>(ntx) * nty * n_views > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  raster_kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, row_w, pair_tri, tile_starts, tile_counts, ntx, height, width,
-      n_attrs, z_init, shade, lx, ly, lz, color, zbuf, normal, image);
+  raster_kernel<<<ntx * nty * n_views, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      rows, row_w, pair_tri, tile_starts, tile_counts, ntx, ntx * nty,
+      height, width, n_attrs, z_init, shade, lx, ly, lz, color, zbuf, normal,
+      image);
   return static_cast<int>(cudaGetLastError());
 }
 

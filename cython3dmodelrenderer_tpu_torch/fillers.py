@@ -10,10 +10,11 @@ host read per frame), so no bin can overflow. The JAX package's capacity
 buckets, background demand reader and overflow re-render have no
 counterpart, and ``validate_capacity`` is trivially true.
 
-A post frame (``"u8"``/``"lambert_u8"``) writes only the uint8 image. Its
-G-buffer getters re-render the retained inputs with G-buffer output on
-first access — bit-identical, the kernels are deterministic — as the JAX
-filler's ``_materialize`` does (``fillers.py:452-486``).
+A post frame (``"u8"``/``"lambert_u8"``/``"fast_lambert_u8"``) writes only
+the uint8 image. Its G-buffer getters re-render the retained inputs, in the
+same post mode, with G-buffer output on first access — bit-identical, the
+kernels are deterministic — as the JAX filler's ``_materialize`` does
+(``fillers.py:452-486``).
 """
 from __future__ import annotations
 
@@ -42,19 +43,23 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
 
     Constructor signature of the reference filler (``py filler:14``) plus
     ``backend`` (``"auto" | "cuda" | "torch"``, see ``RenderConfig``) and
-    ``device``; ``n_threads`` is accepted and ignored.
+    ``device``; ``n_threads`` is accepted and ignored. ``fast_shade=True``
+    (JAX ``fillers.py:197-208``) renders every ``"lambert_u8"`` frame as
+    ``"fast_lambert_u8"``: Lambert baked per vertex (Gouraud), the
+    z-buffer bit-equal to exact mode, the normal G-buffer zeros.
     """
 
     def __init__(self, h: int, w: int, fov: float = 90.0, z_near: float = 0.1,
                  z_far: float = 1000.0, n_threads: Optional[int] = None,
-                 backend: str = "auto", device=None):
+                 backend: str = "auto", device=None, fast_shade: bool = False):
         del n_threads
         self.device = resolve_device(device)
         self.config = RenderConfig(height=h, width=w, fov=fov, z_near=z_near,
                                    z_far=z_far, backend=backend)
         self.backend = resolve_backend(backend, self.device)
+        self.fast_shade = fast_shade
         self._gbuf = None
-        self._deferred = None          # (tv, tn, tc) of a post-only frame
+        self._deferred = None          # (tv, tn, tc, post, light), post-only frame
         self._post_image: Optional[torch.Tensor] = None
         self.last_pairs = 0            # (triangle, tile) pairs of the last frame
         # the JAX filler's lane-subgroup packing (fillers.py:251-253): frames
@@ -110,6 +115,8 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
             if t.device != self.device:
                 raise ValueError(f"triangle arrays on {t.device}, filler on "
                                  f"{self.device}")
+        if post == "lambert_u8" and self.fast_shade:
+            post = "fast_lambert_u8"
         gbuffer = post == "none" or keep_gbuffers
         gbuf, img, self.last_pairs = raster.render_frame(
             tri_verts, tri_norms, tri_colors, self.config, post=post,
@@ -117,15 +124,17 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
             group=self._group)
         self._post_image = img
         self._gbuf = gbuf
-        self._deferred = None if gbuffer else (tri_verts, tri_norms, tri_colors)
+        self._deferred = (None if gbuffer
+                          else (tri_verts, tri_norms, tri_colors, post, light))
 
     def _materialize(self) -> None:
-        """Derive the G-buffer of a post-only frame by re-rendering it."""
+        """Derive the G-buffer of a post-only frame by re-rendering it in
+        its own post mode (a fast-shade frame's G-buffer is its own)."""
         if self._gbuf is None:
-            tv, tn, tc = self._deferred
+            tv, tn, tc, post, light = self._deferred
             self._gbuf, _img, _n = raster.render_frame(
-                tv, tn, tc, self.config, post="none", backend=self.backend,
-                group=self._group)
+                tv, tn, tc, self.config, post=post, light=light, gbuffer=True,
+                backend=self.backend, group=self._group)
             self._deferred = None
 
     def get_post_image(self) -> Optional[torch.Tensor]:

@@ -133,10 +133,10 @@ def bin_sort_plain(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
 
 
 def block_split(n_tris: int, n_tiles: int) -> Tuple[int, int]:
-    """(blocks, triangles per block) of B4: blocks of at least
-    ``MIN_BLOCK_TRIS`` consecutive triangles, as many as the cursor table's
-    ``TABLE_ENTRIES`` allow (a block's walk is sequential, so more blocks
-    shorten the critical path)."""
+    """(blocks, triangles per block) of B4 (B5 splits its pairs the same
+    way): blocks of at least ``MIN_BLOCK_TRIS`` consecutive triangles, as
+    many as the cursor table's ``TABLE_ENTRIES`` allow (a block's walk is
+    sequential, so more blocks shorten the critical path)."""
     blocks = max(1, min(n_tris // MIN_BLOCK_TRIS,
                         TABLE_ENTRIES // max(1, n_tiles)))
     per_block = -(-n_tris // blocks)

@@ -8,7 +8,10 @@ stored direction is the negated, normalized light direction; per pixel
 ``lambert_shade`` evaluates in the raster kernel's own operation order
 (``raster_pallas.py:642-651``): ``dot = nx*lx + ny*ly + nz*lz`` and
 ``sqrt(nx*nx + ny*ny + nz*nz)`` left to right, so the plain path, the
-kernel and the JAX kernel round alike.
+kernel and the JAX kernel round alike. The dot starts from +0.0 as XLA's
+``jnp.sum`` does, so a dot of -0.0 products reads +0.0 (the background of
+an f32 Lambert sweep); the u8 image, and so the kernel, never see the sign
+of a zero.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def lambert_shade(color: torch.Tensor, n_buffer: torch.Tensor,
     """
     lx, ly, lz = (float(v) for v in light)
     nx, ny, nz = n_buffer[..., 0], n_buffer[..., 1], n_buffer[..., 2]
-    dot = (nx * lx + ny * ly) + nz * lz
+    dot = ((nx * lx + 0.0) + ny * ly) + nz * lz
     norm = sqrt_rn((nx * nx + ny * ny) + nz * nz)
     shadow = dot / (norm + 1e-6)
     # comparisons keep a NaN shadow NaN, as jnp.clip does

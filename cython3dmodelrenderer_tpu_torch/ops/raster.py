@@ -26,8 +26,10 @@ exact ties to the lowest triangle index, ``z_init`` background, u8 by int32
 truncation then ``& 255``, Lambert in the kernel's operation order.
 
 ``render_frame`` is the counterpart of ``raster_pallas.render_frame``
-(``:1309-1440``) for posts ``"none"``, ``"u8"`` and ``"lambert_u8"``, and
-``rasterize`` of ``raster_pallas.rasterize`` (``:1450``).
+(``:1309-1440``) for posts ``"none"``, ``"u8"``, ``"lambert_u8"`` and
+``"fast_lambert_u8"``, and ``rasterize`` of ``raster_pallas.rasterize``
+(``:1450``). ``route_bins`` routes a frame's bins, or a view batch's, as
+``raster_pallas._stage_b`` does (``:1139-1161``).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from .sort import sort_i32, sort_i32_plain
 
 TILE_H = 16
 TILE_W = 32
-POSTS = ("none", "u8", "lambert_u8")
+POSTS = ("none", "u8", "lambert_u8", "fast_lambert_u8")
 PLAIN_CHUNK = 2048     # pairs per pass of the plain raster (x 512 fragments)
 PLAIN_PIXELS = 1 << 20  # pixels per pass of the plain raster's winner stage
 #: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``); a
@@ -105,11 +107,17 @@ def background(height: int, width: int, z_init: float,
             torch.zeros((height, width, 3), dtype=torch.float32, device=device))
 
 
+def _frame_shape(n_views: int, height: int, width: int, c: int):
+    """(H, W, C) for one view, (V, H, W, C) for a batch."""
+    return (height, width, c) if n_views == 1 else (n_views, height, width, c)
+
+
 def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
                        tile_starts: torch.Tensor, tile_counts: torch.Tensor,
                        ntx: int, nty: int, height: int, width: int,
                        n_attrs: int, z_init: float, light=None,
-                       gbuffer: bool = True, image: bool = False
+                       gbuffer: bool = True, image: bool = False,
+                       n_views: int = 1
                        ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor]]:
     """The plain version of ``raster_tiles``, ``PLAIN_CHUNK`` pairs a pass.
 
@@ -118,12 +126,15 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
     ascending bin) comes from two ``scatter_reduce("amin")`` passes, then
     the winner's planes are evaluated at each pixel.
     """
-    _check_inputs(rows, pair_tri, tile_starts, tile_counts, ntx * nty, n_attrs)
+    tpv = ntx * nty
+    _check_inputs(rows, pair_tri, tile_starts, tile_counts, tpv * n_views,
+                  n_attrs)
     dev = rows.device
     hw = height * width
+    n_pix = n_views * hw
     counts = tile_counts.to(torch.int64)
     n = int(counts.sum())
-    pair_tile = torch.repeat_interleave(torch.arange(ntx * nty, device=dev),
+    pair_tile = torch.repeat_interleave(torch.arange(tpv * n_views, device=dev),
                                         counts, output_size=n)
     off = torch.cumsum(counts, 0) - counts
     pos = (tile_starts.to(torch.int64)[pair_tile]
@@ -131,22 +142,23 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
     local = torch.arange(TILE_H * TILE_W, device=dev)
 
     def fragments(p0: int, p1: int):
-        tile = pair_tile[p0:p1]
+        view, tile = pair_tile[p0:p1] // tpv, pair_tile[p0:p1] % tpv
         g = rows[pair_tri[pos[p0:p1]].to(torch.int64)]
         xi = ((tile % ntx) * TILE_W)[:, None] + (local % TILE_W)[None, :]
         yi = ((tile // ntx) * TILE_H)[:, None] + (local // TILE_W)[None, :]
         z, good = _good(g, xi.to(torch.float32), yi.to(torch.float32))
         inside = (xi < width) & (yi < height)
         good = good & inside
-        pix = torch.where(inside, yi * width + xi, hw)        # hw: dump slot
+        # n_pix: the dump slot of pixels outside their view's image
+        pix = torch.where(inside, view[:, None] * hw + yi * width + xi, n_pix)
         return pix.reshape(-1), z, good
 
     inf = float("inf")
-    zmin = torch.full((hw + 1,), inf, dtype=torch.float32, device=dev)
+    zmin = torch.full((n_pix + 1,), inf, dtype=torch.float32, device=dev)
     for p0 in range(0, n, PLAIN_CHUNK):
         pix, z, good = fragments(p0, min(n, p0 + PLAIN_CHUNK))
         zmin.scatter_reduce_(0, pix, torch.where(good, z, inf).reshape(-1), "amin")
-    rmin = torch.full((hw + 1,), n, dtype=torch.int64, device=dev)
+    rmin = torch.full((n_pix + 1,), n, dtype=torch.int64, device=dev)
     for p0 in range(0, n, PLAIN_CHUNK):
         p1 = min(n, p0 + PLAIN_CHUNK)
         pix, z, good = fragments(p0, p1)
@@ -156,15 +168,15 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
 
     # the winners' planes at every pixel, PLAIN_PIXELS pixels a pass (the
     # gathered winner rows are 136 B a pixel)
-    color = torch.zeros((hw, 3), dtype=torch.float32, device=dev)
-    normal = torch.zeros((hw, 3), dtype=torch.float32, device=dev)
-    zbuf = torch.full((hw,), z_init, dtype=torch.float32, device=dev)
+    color = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    normal = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    zbuf = torch.full((n_pix,), z_init, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for q0 in range(0, hw if n else 0, PLAIN_PIXELS):
-        q1 = min(hw, q0 + PLAIN_PIXELS)
+    for q0 in range(0, n_pix if n else 0, PLAIN_PIXELS):
+        q1 = min(n_pix, q0 + PLAIN_PIXELS)
         has = rmin[q0:q1] < n
         wrows = rows[pair_tri[rmin[q0:q1].clamp(max=n - 1)].to(torch.int64)]
-        flat = torch.arange(q0, q1, device=dev)
+        flat = torch.arange(q0, q1, device=dev) % hw      # view-relative
         px = (flat % width).to(torch.float32)
         py = (flat // width).to(torch.float32)
         for ch in range(n_attrs):
@@ -175,11 +187,12 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
                 zero)
         zbuf[q0:q1] = torch.where(has, _plane(wrows, 9, px, py),
                                   torch.full_like(px, z_init))
-    color = color.reshape(height, width, 3)
-    normal = normal.reshape(height, width, 3)
+    color = color.reshape(_frame_shape(n_views, height, width, 3))
+    normal = normal.reshape(color.shape)
     gbuf = img = None
     if gbuffer:
-        gbuf = (color, zbuf.reshape(height, width, 1), normal)
+        gbuf = (color, zbuf.reshape(_frame_shape(n_views, height, width, 1)),
+                normal)
     if image:
         # a pixel without a winner has zero colour and normal → shades to 0
         img = cast_u8(color if light is None
@@ -190,8 +203,8 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("raster")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.raster_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, f, i, f, f, f,
-                                  p, p, p, p, i, p]
+    lib.raster_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i, f, i, f, f,
+                                  f, p, p, p, p, i, p]
     lib.raster_launch.restype = ctypes.c_int
     return lib
 
@@ -200,7 +213,7 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
                  tile_starts: torch.Tensor, tile_counts: torch.Tensor,
                  ntx: int, nty: int, height: int, width: int,
                  n_attrs: int, z_init: float, light=None,
-                 gbuffer: bool = True, image: bool = False
+                 gbuffer: bool = True, image: bool = False, n_views: int = 1
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor]]:
     """Rasterize binned plane rows into a G-buffer and/or a u8 image.
 
@@ -210,15 +223,22 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
     z (H, W, 1), normal (H, W, 3)) float32 when ``gbuffer``, ``image`` =
     (H, W, 3) uint8 BGR when ``image`` — Lambert-shaded with ``light`` (the
     pre-negated unit direction) when given, which needs ``n_attrs == 6``.
+
+    ``n_views > 1`` renders a view batch in the same one launch: the tile
+    tables hold ``n_views * ntx * nty`` entries, view v's tiles at
+    ``v * ntx * nty + local``, and every output gains a leading
+    ``(n_views,)`` axis. Pixel coordinates are view-relative, so each view
+    renders as it would alone.
     CUDA tensors launch kernel B1, CPU tensors run ``raster_tiles_plain``.
     """
     if rows.device.type == "cpu":
         return raster_tiles_plain(rows, pair_tri, tile_starts, tile_counts,
                                   ntx, nty, height, width, n_attrs, z_init,
-                                  light, gbuffer, image)
+                                  light, gbuffer, image, n_views)
     if rows.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {rows.device}")
-    _check_inputs(rows, pair_tri, tile_starts, tile_counts, ntx * nty, n_attrs)
+    _check_inputs(rows, pair_tri, tile_starts, tile_counts,
+                  ntx * nty * n_views, n_attrs)
     if light is not None and n_attrs != 6:
         raise ValueError("Lambert shading needs the 6-attribute rows")
     if not (gbuffer or image):
@@ -230,17 +250,19 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
     gbuf = img = None
     gbuf_ptrs = (None, None, None)
     if gbuffer:
-        gbuf = tuple(torch.empty((height, width, c), dtype=torch.float32,
-                                 device=dev) for c in (3, 1, 3))
+        gbuf = tuple(torch.empty(_frame_shape(n_views, height, width, c),
+                                 dtype=torch.float32, device=dev)
+                     for c in (3, 1, 3))
         gbuf_ptrs = tuple(t.data_ptr() for t in gbuf)
     if image:
-        img = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
+        img = torch.empty(_frame_shape(n_views, height, width, 3),
+                          dtype=torch.uint8, device=dev)
     lx, ly, lz = (float(v) for v in light) if light is not None else (0.0,) * 3
     lib = _lib()
     err = lib.raster_launch(
         rows.data_ptr(), rows.shape[1], pair_tri.data_ptr(),
-        tile_starts.data_ptr(), tile_counts.data_ptr(), ntx, nty, height,
-        width, n_attrs, z_init, int(light is not None), lx, ly, lz,
+        tile_starts.data_ptr(), tile_counts.data_ptr(), ntx, nty, n_views,
+        height, width, n_attrs, z_init, int(light is not None), lx, ly, lz,
         *gbuf_ptrs, img.data_ptr() if img is not None else None,
         dev.index, cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "raster_tiles (csrc/raster.cu)")
@@ -252,6 +274,33 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
 raster_tiles.launches = 0
 
 
+def view_row_stride(nty: int, group: int) -> int:
+    """``raster_pallas.view_row_stride`` (``:121``): a view's tile rows
+    padded to a multiple of ``group``. The port stacks views without this
+    padding; it enters only the budget test of ``route_bins``."""
+    return -(-nty // group) * group
+
+
+def route_bins(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
+               cy: torch.Tensor, ntx: int, nty: int, total: int, group: int,
+               backend: str, n_views: int = 1):
+    """The bins of ``n_views`` stacked ``ntx x nty`` frames (spans on the
+    ``ntx x n_views·nty`` grid), routed as ``raster_pallas._stage_b``
+    routes them: a ``group > 1`` batch inside ``grouped_limits_ok`` — with
+    ``n_views·T`` triangles, the pair total as ``slot_cap`` and
+    ``n_views · view_row_stride(nty, group)`` tile rows, as the JAX sweep
+    lays views out — takes the sort route (B2 + ``searchsorted``), every
+    other one the counting-sort route (B4). Both give the same bins.
+    ``backend``: ``"cuda"`` = the kernels' wrappers, ``"torch"`` = their
+    plain versions."""
+    sort, count_sort = ((sort_i32, bin_sort) if backend == "cuda"
+                        else (sort_i32_plain, bin_sort_plain))
+    if group > 1 and grouped_limits_ok(tx0.shape[0], total, ntx,
+                                       n_views * view_row_stride(nty, group)):
+        return bin_pairs(tx0, cx, ty0, cy, ntx, n_views * nty, total, sort=sort)
+    return count_sort(tx0, cx, ty0, cy, ntx, n_views * nty, total)
+
+
 def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  tri_colors: torch.Tensor, config: RenderConfig,
                  post: str = "none", light=None, gbuffer: bool = False,
@@ -259,27 +308,25 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor], int]:
     """One frame: cull + project → plane rows → bins → raster (B1).
 
-    ``post``: ``"none"`` (G-buffer only), ``"u8"`` (uint8 colour image) or
+    ``post``: ``"none"`` (G-buffer only), ``"u8"`` (uint8 colour image),
     ``"lambert_u8"`` (Lambert-shaded with ``light``, the pre-negated unit
-    direction). ``gbuffer=True`` also emits the G-buffer for a post frame.
+    direction) or ``"fast_lambert_u8"`` (fast shade: Lambert baked into the
+    vertex colours, then the u8 post over 3 attribute channels — a
+    Gouraud image, the z-buffer bit-equal to exact mode, the normal
+    G-buffer zeros; ``raster_pallas.py:1340-1350``). ``gbuffer=True``
+    also emits the G-buffer for a post frame.
     ``backend``: ``"cuda"`` goes through the kernels' wrappers, ``"torch"``
-    through their plain versions. ``group`` routes the bins as the JAX
-    ``render_frame`` routes them (``raster_pallas.py:1148-1161``): a
-    ``group > 1`` frame inside ``grouped_limits_ok`` takes the sort route
-    (B2 + ``searchsorted``), every other frame the counting-sort route
-    (B4); both give the same bins, so the same pixels. Returns ``(gbuf,
-    image, n_pairs)``; the frame reads one scalar back to the host (its
-    pair total, which sizes the bins exactly).
+    through their plain versions. ``group`` routes the bins
+    (``route_bins``); both routes give the same bins, so the same pixels.
+    Returns ``(gbuf, image, n_pairs)``; the frame reads one scalar back to
+    the host (its pair total, which sizes the bins exactly).
     """
-    if post == "fast_lambert_u8":
-        raise NotImplementedError("fast-shade frames are ROADMAP queue A item 9")
     if post not in POSTS:
         raise ValueError(f"unknown post {post!r}")
-    if post == "lambert_u8" and light is None:
-        raise ValueError("post='lambert_u8' needs a light direction")
-    sort, count_sort, raster = (
-        (sort_i32, bin_sort, raster_tiles) if backend == "cuda"
-        else (sort_i32_plain, bin_sort_plain, raster_tiles_plain))
+    fast = post == "fast_lambert_u8"
+    if post in ("lambert_u8", "fast_lambert_u8") and light is None:
+        raise ValueError(f"post={post!r} needs a light direction")
+    raster = raster_tiles if backend == "cuda" else raster_tiles_plain
     h, w = config.height, config.width
     ntx, nty = -(-w // TILE_W), -(-h // TILE_H)
     emit_gbuf = post == "none" or gbuffer
@@ -293,18 +340,17 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
     active = ~degenerate & ~backfacing
     tris_screen = project_to_screen(tri_verts, config)
+    colors = tri_colors.to(torch.float32)
+    if fast:                                    # Gouraud: shade per vertex
+        colors = lambert_shade(colors, tri_norms, light)
     # hot u8 frames never read normals: 3 attribute channels (25 columns)
-    n_attrs = 3 if (post == "u8" and not emit_gbuf) else binning.N_ATTRS
+    n_attrs = (3 if fast or (post == "u8" and not emit_gbuf)
+               else binning.N_ATTRS)
     rows, tx0, cx, ty0, cy, counts = binning.plane_data(
-        tris_screen, active, config, TILE_H, TILE_W,
-        colors=tri_colors.to(torch.float32),
+        tris_screen, active, config, TILE_H, TILE_W, colors=colors,
         normals=None if n_attrs == 3 else tri_norms)
     total = int(counts.sum())                   # the frame's one host read
-    if group > 1 and grouped_limits_ok(tri_verts.shape[0], total, ntx,
-                                       -(-nty // group) * group):
-        bins = bin_pairs(tx0, cx, ty0, cy, ntx, nty, total, sort=sort)
-    else:
-        bins = count_sort(tx0, cx, ty0, cy, ntx, nty, total)
+    bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
     gbuf, img = raster(rows, *bins, ntx, nty, h, w, n_attrs, config.z_init,
                        light=light if post == "lambert_u8" else None,
                        gbuffer=emit_gbuf, image=want_img)

@@ -11,6 +11,8 @@ The batched path only: with ``GuroIllumination`` a frame is the
 quantized inside the raster kernel; the z and normal buffers are lazy and
 re-render with G-buffer output on first access. Untextured models get
 per-triangle colours from the renderer's ``torch.Generator``.
+``render_sequence`` renders a pose sequence through the multi-view sweep
+(``parallel.multiview``).
 """
 from __future__ import annotations
 
@@ -114,8 +116,52 @@ class Renderer:
         self.z_buffer.set_lazy(filler.get_z_buffer)
         self.n_buffer.set_lazy(filler.get_normals_buffer)
 
-    def render_sequence(self, *args, **kwargs):
-        raise NotImplementedError("pose sequences are ROADMAP queue A item 11")
+    def render_sequence(self, model: Model, angles, shifts=None,
+                        random_colors: bool = True, view_batch: int = 1,
+                        fast_shade: bool = False) -> torch.Tensor:
+        """Render a pose sequence; returns display-ready (N, H, W, 3)
+        uint8 frames (JAX ``renderer.py:193-244``).
+
+        Frame i rotates the model as it stands by ``angles[i]`` (Euler XYZ
+        degrees) and translates it by ``shifts[i]`` (default ``[0, 0, 1]``)
+        through ``parallel.multiview.render_sequence_pallas``, which sizes
+        each batch of ``view_batch`` views exactly. The light comes from
+        this Renderer's drawer (NoIllumination: none); fallback colours of
+        an untextured model from its generator. The Renderer's own buffers
+        are not touched. Needs an ``AdvancedPixelBufferFiller``.
+        """
+        from .parallel import multiview
+
+        filler = self.pixel_buffer_filler
+        if not isinstance(filler, AdvancedPixelBufferFiller):
+            raise TypeError("render_sequence needs AdvancedPixelBufferFiller")
+        if type(self.illumination) is NoIllumination:
+            light_direction = None
+        elif type(self.illumination) is GuroIllumination:
+            # the sweep negates and normalises again: hand it the raw
+            # direction recovered from the drawer's pre-negated unit vector
+            light_direction = -np.asarray(self.illumination.light_direction,
+                                          np.float32)
+        else:
+            raise TypeError("render_sequence supports GuroIllumination / "
+                            "NoIllumination (custom drawers: render frames "
+                            "individually)")
+        tri_colors = model.colors_by_triangles
+        if tri_colors is None:
+            tri_colors = self._fallback_colors(model, random_colors)
+        tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+        for t in (tv, tn, tri_colors):
+            if t.device != filler.device:
+                raise ValueError(f"model arrays on {t.device}, filler on "
+                                 f"{filler.device}")
+        angles = np.asarray(angles, np.float32).reshape(-1, 3)
+        if shifts is None:
+            shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), angles.shape)
+        return multiview.render_sequence_pallas(
+            tv, tn, tri_colors, angles, shifts, filler.config,
+            group=filler._group, post="u8", view_batch=view_batch,
+            fast_shade=fast_shade, light_direction=light_direction,
+            backend=filler.backend)
 
     def reset_buffers(self) -> None:
         self.n_buffer.clear()

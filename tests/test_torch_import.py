@@ -13,9 +13,11 @@ import torch
 baseline = set(sys.modules)          # torch may pull in tqdm itself
 WATCH = ("jax", "cv2", "tqdm", "cython3dmodelrenderer_tpu")
 import cython3dmodelrenderer_tpu_torch as pt
-from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort, illumination,
+from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
+                                                 binsort_grouped, illumination,
                                                  projection, raster, raster_ref,
                                                  sort, transforms)
+from cython3dmodelrenderer_tpu_torch.parallel import multiview
 after_import = sorted(m for m in WATCH if m in set(sys.modules) - baseline)
 # the main path on the CPU, including a mesh whose texture file is missing
 model = pt.Model.read_model(sys.argv[1])

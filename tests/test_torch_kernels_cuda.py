@@ -1,5 +1,6 @@
-"""Kernels B1 (raster), B2 (sort) and B4 (counting-sort binning) against
-their plain PyTorch versions.
+"""Kernels B1 (raster, single-view and view-batched), B2 (sort), B4
+(counting-sort binning) and B5 (group-interleaved binning) against their
+plain PyTorch versions, and the sweep path on both backends.
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
@@ -12,10 +13,13 @@ import pytest
 import torch
 
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
-from cython3dmodelrenderer_tpu_torch.ops import binning, binsort, raster
+from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
+                                                 binsort_grouped, raster)
 from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
                                                             visibility_masks)
 from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
+from cython3dmodelrenderer_tpu_torch.parallel import multiview
+from test_torch_multiview import tiny_scene
 from test_torch_raster import light_direction, random_scene
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +159,105 @@ def test_bin_sort_kernel_zero_and_one_pair(cuda, n_live):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert got[0].tolist() == [0] * n_live
+
+
+def batch_inputs(cuda, h, w, n_views, t, seed, n_attrs):
+    """The stacked plane rows and bins of an ``n_views`` turntable batch."""
+    tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(t, seed))
+    cfg = RenderConfig(height=h, width=w, fov=45)
+    angles = multiview.turntable_angles(n_views)
+    shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (n_views, 3))
+    rows, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+        tv, tn, tc, angles, shifts, cfg, lean=n_attrs == 3)
+    ntx, nty = -(-w // 32), -(-h // 16)
+    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
+                             16, "cuda", n_views)
+    kw = dict(rows=rows, pair_tri=bins[0], tile_starts=bins[1],
+              tile_counts=bins[2], ntx=ntx, nty=nty, height=h, width=w,
+              n_attrs=n_attrs, z_init=1e6)
+    return kw, (tv, tn, tc, angles, shifts, cfg)
+
+
+@pytest.mark.parametrize("n_views", [2, 4])
+@pytest.mark.parametrize("h,w", [(64, 64), (72, 100), (1024, 1024)])
+@pytest.mark.parametrize("post", ["none", "u8", "lambert_u8"])
+def test_raster_kernel_view_batch(cuda, n_views, h, w, post):
+    """One view-batched B1 launch equals its plain version and a
+    single-view launch per view."""
+    kw, (tv, tn, tc, angles, shifts, cfg) = batch_inputs(
+        cuda, h, w, n_views, 120, n_views, 3 if post == "u8" else 6)
+    light = light_direction() if post == "lambert_u8" else None
+    opts = dict(light=light, gbuffer=post == "none", image=post != "none")
+    before = raster.raster_tiles.launches
+    g_k, i_k = raster.raster_tiles(**kw, **opts, n_views=n_views)
+    g_p, i_p = raster.raster_tiles_plain(**kw, **opts, n_views=n_views)
+    torch.cuda.synchronize()
+    assert raster.raster_tiles.launches == before + 1
+    got = g_k if post == "none" else (i_k,)
+    want = g_p if post == "none" else (i_p,)
+    for a, b in zip(got, want):
+        assert a.shape[:3] == (n_views, h, w) and torch.equal(a, b)
+    for v in range(n_views):
+        r1, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+            tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg,
+            lean=post == "u8")
+        bins = raster.route_bins(tx0, cx, ty0, cy, kw["ntx"], kw["nty"],
+                                 int(counts.sum()), 16, "cuda")
+        single = raster.raster_tiles(r1, *bins, kw["ntx"], kw["nty"], h, w,
+                                     kw["n_attrs"], 1e6, **opts)
+        single = single[0] if post == "none" else (single[1],)
+        for a, b in zip(got, single):
+            assert torch.equal(a[v], b)
+
+
+@pytest.mark.parametrize("post", ["f32", "u8"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_sweep_backends_agree(cuda, post, fast):
+    """The sweep through the kernels equals the sweep through their plain
+    versions, and every view batch equals ``view_batch=1``."""
+    tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(300, 4))
+    cfg = RenderConfig(height=200, width=130, fov=45)
+    angles = multiview.turntable_angles(4)
+    plain = multiview.render_turntable_pallas(tv, tn, tc, angles, cfg,
+                                              post=post, fast_shade=fast,
+                                              backend="torch")
+    for vb in (1, 2, 4):
+        before = raster.raster_tiles.launches
+        got = multiview.render_turntable_pallas(tv, tn, tc, angles, cfg,
+                                                post=post, fast_shade=fast,
+                                                view_batch=vb)
+        torch.cuda.synchronize()
+        assert raster.raster_tiles.launches == before + 4 // vb
+        assert torch.equal(got, plain)
+
+
+def grouped_spans(cuda, size, t, seed):
+    tris, colors, normals = random_scene(t, seed)
+    cfg = RenderConfig(height=size, width=size, fov=60)
+    tv, tn = (torch.from_numpy(a).to(cuda) for a in (tris, normals))
+    deg, back = visibility_masks(tv, tn)
+    _rows, tx0, cx, ty0, cy, counts = binning.plane_data(
+        project_to_screen(tv, cfg), ~deg & ~back, cfg, 16, 32)
+    return (tx0, cx, ty0, cy, size // 32, size // 16), int(counts.sum())
+
+
+@pytest.mark.parametrize("size,t", [(128, 300), (1024, 1000), (2016, 400)])
+@pytest.mark.parametrize("cap", ["ample", "half", "tiny"])
+def test_bin_sort_grouped_kernel_matches_plain(cuda, size, t, cap):
+    spans, total = grouped_spans(cuda, size, t, size)
+    plain = binsort_grouped.bin_sort_grouped_plain(*spans, 1 << 16, 16, 8)
+    slot_cap = {"ample": min(int(plain[6]), (1 << 17) - 128),
+                "half": -(-total // 256) * 128, "tiny": 128}[cap]
+    want = binsort_grouped.bin_sort_grouped_plain(*spans, slot_cap, 16, 8)
+    before = binsort_grouped.bin_sort_grouped.launches
+    got = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
+    again = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
+    torch.cuda.synchronize()
+    assert binsort_grouped.bin_sort_grouped.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(a, b)
+    placed = int((got[0] != t).sum())
+    assert placed <= min(total, slot_cap)
+    # a 128-slot cap keeps one group's chunk, whose tiles the first 128
+    # pairs in triangle order may all miss
+    assert placed > 0 or cap == "tiny"

@@ -118,8 +118,10 @@ def test_unported_paths_raise():
     model = pt.Model(np.eye(3, dtype=np.float32), [[0, 1, 2]])
     with pytest.raises(NotImplementedError, match="item 6"):
         port_renderer(Custom()).render(model)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_renderer(pt.NoIllumination()).render_sequence(model, [])
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    with pytest.raises(NotImplementedError, match="item 4"):
+        multiview.render_turntable(model, [])
     with pytest.raises(NotImplementedError, match="item 10"):
         pt.Renderer(pt.PixelBufferFiller(), pt.NoIllumination(),
                     pt.SimpleIterator, 8, 8).render(model)
