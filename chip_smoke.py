@@ -9,9 +9,10 @@ Phases (one line each; any failure exits nonzero):
 
 1. device  — torch/CUDA versions and the card's name and power limit;
              fails when CUDA is unavailable (no CPU fallback);
-2. build   — builds kernels B1 (csrc/raster.cu), B2 (csrc/sort.cu) and
-             B4 (csrc/binsort.cu) from the repository's sources, one nvcc
-             each, all started together;
+2. build   — builds kernels B1 (csrc/raster.cu), B2 (csrc/sort.cu), B4
+             (csrc/binsort.cu), B5 (csrc/binsort_grouped.cu), P2
+             (csrc/vpu_cal.cu) and P1 (csrc/epi_prims.cu) from the
+             repository's sources, one nvcc each, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card:
              B2 on random unique keys (exact), B1 on the binned 1024²
              scenes for posts none/u8/lambert_u8 (bit-equal);
@@ -21,6 +22,8 @@ Phases (one line each; any failure exits nonzero):
              (c) $CRENDER_OBJECTS/T-Rex.obj when that file exists; checks
              the images against the plain path, determinism, the lazy
              z-buffer and that both kernels launched (the sort route);
+             one Renderer, filler and model built with no device
+             argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
              (CUDA events), and each kernel against its plain version;
 6. large   — the un-grouped (counting-sort) path: B4 against its plain
@@ -47,15 +50,31 @@ Phases (one line each; any failure exits nonzero):
              plain version on sphere16k@1024²'s spans, group 16, sub 8, at
              an ample and an undersized slot_cap: bit-equal in every
              output, equal to itself on a second run; its time and the
-             plain version's.
+             plain version's;
+9. probes  — the calibration probes' path, as their ``__main__``s run it:
+             P2 (probes/vpu_cal.py) at n_ops 8/32/128/512 and P1
+             (probes/epi_prims.py), all 15 primitives at 0/128/256
+             replicas, printed as the scripts print them; then P2 against
+             its plain version at n_ops 8, 32 and 512 (bit-equal, equal to
+             itself on a second run) and P1 at 0, 2 and 128 replicas: one
+             replica bit-equal to the plain version for the element
+             primitives and within rtol 2e-6 for the summed ones (up to
+             2 x 65,536 floats summed in another order); at R replicas
+             the kernel and the plain version each equal bit for bit to
+             R f32 adds of their own one-replica value, and the kernel
+             equal to the plain version (element primitives) or within
+             rtol 2e-6 + R x 2^-23 (the rest); equal to itself on a second
+             run; torch.matmul beside segsum / segsum6 as a yardstick.
 
 The next-to-last lines are the nvidia-smi name/power-limit line and one
-JSON object with the kernels' launch counts, errors and times; the last
-line is ``{"ok": true, "device": {...}}``.
+JSON object with the kernels' launch counts, errors, times and bounds
+(``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
+operations this run's inputs need over 33.5 T instructions/s; P1's
+``max_abs_err`` is the one-replica difference that its checks hold); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -70,7 +89,8 @@ WARM_FRAMES = 60
 Z_FRAC_MAX, COLOR_FRAC_MAX = 5e-5, 1.5e-4
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
-KERNEL_SOURCES = ("sort", "raster", "binsort", "binsort_grouped")
+KERNEL_SOURCES = ("sort", "raster", "binsort", "binsort_grouped", "vpu_cal",
+                  "epi_prims")
 # the un-grouped (counting-sort) path: frames past grouped_limits_ok
 LARGE_FRAMES = (("sphere16k", 2048), ("torus262k", 1024), ("torus262k", 4096))
 LARGE_WARM_FRAMES = 20
@@ -82,6 +102,14 @@ FAST_BATCHES = (1, 4)
 SWEEP_SHIFT = (0.0, 0.0, 2.0)
 SWEEP_REPS = 10
 B5_GROUP, B5_SUB = 16, 8
+P2_CHECK_N_OPS = (8, 32, 512)
+P2_TIMED = 512                     # n_ops of the kernels line's P2 entry
+P1_CHECK_REPS = (0, 2, 128)
+P1_RTOL = 2e-6           # summed primitives: up to 2 x 65,536 floats
+# R replicas: each of R f32 adds rounds by at most half an ulp of the
+# running sum, R x 2^-24 relative on each side
+P1_FOLD_ULP = 2.0 ** -23
+P1_TIMED = ("epi_cur6", 128)
 
 
 class SmokeFailure(Exception):
@@ -95,13 +123,6 @@ def say(phase, msg):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +243,9 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False — this smoke "
                            "test needs a CUDA GPU and does not fall back")
-    smi = smi_line()
+    from cython3dmodelrenderer_tpu_torch.measure import smi as query_smi
+
+    smi = query_smi("name,power.limit")
     say("device", f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()} | nvidia-smi: {smi}")
@@ -291,6 +314,51 @@ def frame_setup(model, post, size):
 def with_bins(kw, bins):
     pair_tri, starts, counts = bins
     return dict(kw, pair_tri=pair_tri, tile_starts=starts, tile_counts=counts)
+
+
+# ---------------------------------------------------------------------------
+# bounds: (bound_ms, bound_by) from this run's inputs
+# ---------------------------------------------------------------------------
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def raster_bound(kw):
+    """B1 / B3: rows, pairs and bin tables read once, the u8 image written
+    once; f32 operations the bins need (``raster.walk_instructions``: 28
+    per (pair, pixel) in the pair's ceil bbox, 4 per other pixel of its
+    tile; the winner's epilogue is left out, so this is a floor)."""
+    from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    n_views = kw.get("n_views", 1)
+    moved = (nbytes(kw["rows"], kw["pair_tri"], kw["tile_starts"],
+                    kw["tile_counts"])
+             + n_views * kw["height"] * kw["width"] * 3)
+    ops = raster.walk_instructions(kw["rows"], kw["pair_tri"],
+                                   kw["tile_starts"], kw["tile_counts"],
+                                   kw["ntx"], kw["nty"], kw["height"],
+                                   kw["width"], n_views)
+    return roofline_ms(moved, ops)
+
+
+def sort_bound(keys):
+    """B2: keys read and written once; n log2 n comparisons."""
+    import math
+
+    from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
+
+    n = keys.numel()
+    return roofline_ms(2 * nbytes(keys), n * math.ceil(math.log2(max(n, 2))))
+
+
+def binning_bound(spans, outputs, pairs):
+    """B4 / B5: spans read once, every output written once; a count and a
+    placement per pair."""
+    from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
+
+    return roofline_ms(nbytes(*spans[:4], *outputs), 2 * pairs)
 
 
 def frame_inputs(model, post):
@@ -486,6 +554,7 @@ def phase_main(scenes):
             img2 = seeded_render(renderer, model)
             results[(name, iname)] = (renderer, img1, img2,
                                       renderer.z_buffer.array)
+    default = default_device_render()
     torch.cuda.synchronize()
     launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches}
 
@@ -500,10 +569,37 @@ def phase_main(scenes):
         say("main", f"{name} {iname}: {lit:.4f} of pixels lit, deterministic, "
             f"== plain path, z background 1e6, "
             f"{renderer.pixel_buffer_filler.last_pairs} pairs")
+    renderer, img = default
+    require(renderer.device.type == "cuda" and img.device.type == "cuda"
+            and renderer.pixel_buffer_filler.backend == "cuda",
+            f"no device argument: rendered on {img.device}")
+    require(torch.equal(img, results[("igor_sphere", "guro")][1]),
+            "no device argument: igor_sphere guro differs from the cuda frame")
+    say("main", f"Renderer, filler and Model.read_model with no device: on "
+        f"{img.device}, backend {renderer.pixel_buffer_filler.backend}, "
+        "== the igor_sphere guro frame")
     require(launches["raster"] > 0 and launches["sort"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     say("main", f"kernel launches on the main path: {launches}")
     return launches, results
+
+
+def default_device_render():
+    """igor_sphere through a Renderer, filler and model built with no
+    device argument: the entry points' default is the card."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import (AdvancedPixelBufferFiller,
+                                                 GuroIllumination, Model,
+                                                 Renderer, SimpleIterator)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = posed(Model.read_model(os.path.join(root, "assets",
+                                                "igor_sphere.obj")), True)
+    renderer = Renderer(AdvancedPixelBufferFiller(SIZE, SIZE, fov=FOV),
+                        GuroIllumination([0, 0, 1]), SimpleIterator, SIZE,
+                        SIZE, generator=torch.Generator())
+    return renderer, seeded_render(renderer, model)
 
 
 def phase_large(scenes):
@@ -568,30 +664,13 @@ def phase_large(scenes):
     return launches, results
 
 
-def time_cuda(fn, n):
-    """Median ms of ``n`` calls of ``fn`` after warm-up, with CUDA events."""
-    import torch
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def time_frames(tag, renderer, model, n):
     """Median ms/frame (CUDA events) and mean wall ms of ``n`` warm frames."""
     import torch
 
-    ms = time_cuda(lambda: renderer.render(model), n)
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+
+    ms = cuda_time_ms(lambda: renderer.render(model), n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -605,6 +684,7 @@ def time_frames(tag, renderer, model, n):
 
 
 def phase_timing(scenes, results, inputs, light):
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
                                                             raster_tiles_plain)
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
@@ -616,24 +696,26 @@ def phase_timing(scenes, results, inputs, light):
     # the kernels at the main path's shapes: the 16k-triangle sphere's frame
     kw, keys = inputs["sphere16k"]["lambert_u8"]
     kt = {
-        "sort": (time_cuda(lambda: sort_i32(keys), 100),
-                 time_cuda(lambda: sort_i32_plain(keys), 100)),
-        "raster": (time_cuda(lambda: raster_tiles(**kw, light=light,
+        "sort": (cuda_time_ms(lambda: sort_i32(keys), 100),
+                 cuda_time_ms(lambda: sort_i32_plain(keys), 100)),
+        "raster": (cuda_time_ms(lambda: raster_tiles(**kw, light=light,
                                                   gbuffer=False, image=True),
                              100),
-                   time_cuda(lambda: raster_tiles_plain(**kw, light=light,
+                   cuda_time_ms(lambda: raster_tiles_plain(**kw, light=light,
                                                         gbuffer=False,
                                                         image=True), 20)),
     }
     for k, (ms, plain) in kt.items():
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(sphere16k lambert_u8 frame: {keys.numel()} pair keys)")
-    return frame_ms, kt
+    bounds = {"sort": sort_bound(keys), "raster": raster_bound(kw)}
+    return frame_ms, kt, bounds
 
 
 def phase_timing_large(scenes, results, inputs, light):
     """The un-grouped frames; B4 and the B3 route against their plain
     versions at torus262k@1024; both routes' binning at sphere16k@1024."""
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.binsort import (bin_pairs,
                                                              bin_sort,
                                                              bin_sort_plain)
@@ -649,23 +731,25 @@ def phase_timing_large(scenes, results, inputs, light):
     spans = frame_setup(scenes[name], "lambert_u8", size)[1]
     kw = inputs[(name, size, "lambert_u8")]
     opts = dict(light=light, gbuffer=False, image=True)
+    bounds = {"binsort": binning_bound(spans, bin_sort(*spans), spans[-1]),
+              "b3_route": raster_bound(kw)}
     kt = {
-        "binsort": (time_cuda(lambda: bin_sort(*spans), 50),
-                    time_cuda(lambda: bin_sort_plain(*spans), 50)),
-        "b3_route": (time_cuda(lambda: raster_tiles(**kw, **opts), 50),
-                     time_cuda(lambda: raster_tiles_plain(**kw, **opts), 10)),
+        "binsort": (cuda_time_ms(lambda: bin_sort(*spans), 50),
+                    cuda_time_ms(lambda: bin_sort_plain(*spans), 50)),
+        "b3_route": (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 50),
+                     cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts), 10)),
     }
     for k, (ms, plain) in kt.items():
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"({name}@{size} lambert_u8: {spans[-1]} pairs)")
     small = frame_setup(scenes["sphere16k"], "lambert_u8", SIZE)[1]
-    count_ms = time_cuda(lambda: bin_sort(*small), 100)
-    sort_ms = time_cuda(lambda: bin_pairs(*small, sort=sort_i32), 100)
+    count_ms = cuda_time_ms(lambda: bin_sort(*small), 100)
+    sort_ms = cuda_time_ms(lambda: bin_pairs(*small, sort=sort_i32), 100)
     say("timing", f"binning sphere16k@{SIZE} ({small[-1]} pairs): counting-sort "
         f"route (B4) {count_ms:.4f} ms, sort route (B2 + searchsorted) "
         f"{sort_ms:.4f} ms")
     kt["routes_sphere16k@1024"] = (count_ms, sort_ms)
-    return frame_ms, kt
+    return frame_ms, kt, bounds
 
 
 def turntable_model(device):
@@ -828,6 +912,7 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
     """ms per view of each sweep (CUDA events over the sweep / N) beside
     the single-frame ms/frame, and B1 view-batched against its plain
     version at view_batch 2."""
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
                                                             raster_tiles_plain)
 
@@ -836,7 +921,7 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
         single = frame_ms[f"sphere16k/{iname}"]["median_event_ms"]
         for vb in SWEEP_BATCHES:
             args = sweep_args(renderer, model, vb)
-            ms = time_cuda(lambda: renderer.render_sequence(**args), SWEEP_REPS)
+            ms = cuda_time_ms(lambda: renderer.render_sequence(**args), SWEEP_REPS)
             out[f"sweep_{iname}_vb{vb}"] = ms / SWEEP_VIEWS
             say("timing", f"sweep {iname} view_batch={vb}: "
                 f"{ms / SWEEP_VIEWS:.4f} ms/view ({SWEEP_VIEWS} views, median "
@@ -844,25 +929,26 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
                 f"{single:.4f} ms/frame")
     for vb in FAST_BATCHES:
         args = sweep_args(renderers["guro"], model, vb, fast=True)
-        ms = time_cuda(lambda: renderers["guro"].render_sequence(**args),
+        ms = cuda_time_ms(lambda: renderers["guro"].render_sequence(**args),
                        SWEEP_REPS)
         out[f"sweep_guro_fast_vb{vb}"] = ms / SWEEP_VIEWS
         say("timing", f"sweep guro fast view_batch={vb}: "
             f"{ms / SWEEP_VIEWS:.4f} ms/view")
     kw = sweep_batch_inputs(model, colors, "lambert_u8")
     opts = dict(light=light, gbuffer=False, image=True)
-    kt = (time_cuda(lambda: raster_tiles(**kw, **opts), 100),
-          time_cuda(lambda: raster_tiles_plain(**kw, **opts), 10))
+    kt = (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 100),
+          cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts), 10))
     say("timing", f"B1 view-batched (2 views, lambert_u8, "
         f"{int(kw['pair_tri'].numel())} pairs): kernel {kt[0]:.4f} ms, plain "
         f"{kt[1]:.4f} ms")
-    return out, kt
+    return out, kt, raster_bound(kw)
 
 
 def phase_b5(scenes):
     """B5 against its plain version at sphere16k@1024²'s spans."""
     import torch
 
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.binsort_grouped import (
         bin_sort_grouped, bin_sort_grouped_plain)
 
@@ -892,12 +978,136 @@ def phase_b5(scenes):
             f"{placed} placed, total_slots {int(got[6])}): bit-equal to plain "
             "in every output, deterministic")
     cap = caps[0][1]
-    kt = (time_cuda(lambda: bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB), 50),
-          time_cuda(lambda: bin_sort_grouped_plain(*spans, cap, B5_GROUP,
+    kt = (cuda_time_ms(lambda: bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB), 50),
+          cuda_time_ms(lambda: bin_sort_grouped_plain(*spans, cap, B5_GROUP,
                                                    B5_SUB), 50))
     say("timing", f"B5 bin_sort_grouped sphere16k@{SIZE} ({total} pairs, "
         f"slot_cap {cap}): kernel {kt[0]:.4f} ms, plain {kt[1]:.4f} ms")
-    return launches, err, kt
+    return launches, err, kt, binning_bound(spans, runs[0], total)
+
+
+def max_abs_err(got, want):
+    """Largest |got - want| over the elements that differ (inf == inf)."""
+    differ = got != want
+    return float((got - want).abs()[differ].max()) if differ.any() else 0.0
+
+
+def phase_probes():
+    """The calibration probes: their path as the scripts run it (counts
+    set to 0 just before, read just after), then each kernel against its
+    plain version, and the timings of the kernels line."""
+    import numpy as np
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         roofline_ms)
+    from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
+
+    x2 = vpu_cal.make_input(device=DEVICE)
+    x1, smat = epi_prims.make_input(DEVICE)
+    vpu_cal.run_once.launches = epi_prims.run.launches = 0
+    cal = vpu_cal.calibrate(x2)
+    vpu_cal.report(cal)
+    slopes = {}
+    for name in epi_prims.ALL_PRIMS:
+        slopes[name] = epi_prims.measure(name, x1, smat)
+        epi_prims.report(name, *slopes[name])
+    torch.cuda.synchronize()
+    launches = {"vpu_cal": vpu_cal.run_once.launches,
+                "epi_prims": epi_prims.run.launches}
+    require(min(launches.values()) > 0,
+            f"a probe kernel was not launched on the probes' path: {launches}")
+    say("probes", f"kernel launches on the probes' path: {launches}")
+
+    p2_err = 0.0
+    for n_ops in P2_CHECK_N_OPS:
+        got, again = vpu_cal.run_once(x2, n_ops), vpu_cal.run_once(x2, n_ops)
+        want = vpu_cal.run_once_plain(x2, n_ops)
+        torch.cuda.synchronize()
+        p2_err = max(p2_err, max_abs_err(got, want))
+        require(torch.equal(got, want), f"P2 n_ops={n_ops}: != plain")
+        require(torch.equal(got, again), f"P2 n_ops={n_ops}: two runs differ")
+        say("probes", f"P2 vpu_cal n_ops={n_ops}: bit-equal to plain, "
+            f"deterministic ({int(torch.isinf(got).sum())} of "
+            f"{got.numel()} elements overflow to inf on both)")
+    p1_err = 0.0            # the checked difference: one replica's
+    for name in epi_prims.ALL_PRIMS:
+        # every replica sees the same tile (x + rep * 1e-30 rounds to x), so
+        # R replicas are R f32 adds of the one-replica value, in order, on
+        # both sides: kernel(R) and plain(R) are the same fold of two
+        # one-replica values held to each other
+        one_k = np.float32(epi_prims.run(name, 1, x1, smat).item())
+        one_p = np.float32(epi_prims.run_plain(name, 1, x1, smat).item())
+        exact = name in epi_prims.ELEMENT_PRIMS
+        require(one_k == one_p if exact
+                else abs(one_k - one_p) <= P1_RTOL * abs(one_p),
+                f"P1 {name}: one replica, kernel {one_k!r} vs plain {one_p!r}")
+        p1_err = max(p1_err, float(abs(one_k - one_p)))
+        gaps = []
+        for reps in P1_CHECK_REPS:
+            got = epi_prims.run(name, reps, x1, smat)
+            again = epi_prims.run(name, reps, x1, smat)
+            want = epi_prims.run_plain(name, reps, x1, smat)
+            torch.cuda.synchronize()
+            g, w = got.item(), want.item()
+            require(torch.equal(got, again),
+                    f"P1 {name} reps={reps}: two runs differ")
+            for side, value, one in (("kernel", g, one_k), ("plain", w, one_p)):
+                fold = np.float32(0.0)
+                for _ in range(reps):
+                    fold = np.float32(fold + one)
+                require(value == fold, f"P1 {name} reps={reps}: {side} "
+                        f"{value!r}, {reps} adds of its one-replica value "
+                        f"{float(fold)!r}")
+            tol = 0.0 if exact else (P1_RTOL + reps * P1_FOLD_ULP) * abs(w)
+            require(abs(g - w) <= tol, f"P1 {name} reps={reps}: kernel {g!r} "
+                    f"vs plain {w!r}, beyond {tol!r}")
+            gaps.append(abs(g - w))
+        say("probes", f"P1 epi_prims {name}: one replica "
+            f"{'bit-equal' if exact else f'within {abs(one_k / one_p - 1):.1e}'}"
+            f" to plain; reps {P1_CHECK_REPS}: kernel and plain each == that "
+            f"many f32 adds of their one-replica value, |kernel - plain| "
+            f"{gaps}; deterministic")
+
+    p2_ms = cal["ms"][P2_TIMED]
+    p2_plain = cuda_time_ms(lambda: vpu_cal.run_once_plain(x2, P2_TIMED), 1,
+                            warmup=0)
+    name, reps = P1_TIMED
+    p1_ms = cuda_time_ms(lambda: epi_prims.run(name, reps, x1, smat), 20)
+    p1_plain = cuda_time_ms(lambda: epi_prims.run_plain(name, reps, x1, smat),
+                            2, warmup=1)
+    v = x1.reshape(-1, epi_prims.K)
+    mm = {"segsum": cuda_time_ms(lambda: torch.matmul(v, smat), 50),
+          "segsum6": cuda_time_ms(lambda: torch.matmul(v.repeat(6, 1), smat),
+                                  50)}
+    for k, ms in mm.items():
+        say("probes", f"{k}: kernel {slopes[k][0]:.3f} us a replica; "
+            f"torch.matmul (f32, TF32 off) of the same product {ms * 1e3:.3f} "
+            "us a call (yardstick)")
+    say("timing", f"P2 vpu_cal n_ops={P2_TIMED}: kernel {p2_ms:.4f} ms, plain "
+        f"{p2_plain:.4f} ms; P1 {name} reps={reps}: kernel {p1_ms:.4f} ms, "
+        f"plain {p1_plain:.4f} ms")
+    steps = x2.shape[0] * x2[0].numel()
+    bounds = {
+        # x read and the accumulator written once; per element and step the
+        # chain's FMUL, FADD, FSETP and predicated FADD per pair and the
+        # carry's multiply and add
+        "vpu_cal": roofline_ms(nbytes(x2, x2[0]),
+                               steps * (P2_TIMED // 2 * 4 + 2)),
+        # x and smat read once, the scalar written once; the operations of
+        # the 16 lanes a row that can contribute
+        "epi_prims": roofline_ms(
+            nbytes(x1, smat) + 4,
+            reps * x1[..., 0].numel() * epi_prims.EPI_CUR6_OPS_PER_ROW),
+    }
+    probes = {"vpu_cal": {"ms": cal["ms"], "ns_per_op": cal["ns_per_op"],
+                          "instr_per_s": cal["instr_per_s"]},
+              "epi_prims_us_per_replica": {k: v[0] for k, v in slopes.items()},
+              "epi_prims_walls_ms": {k: v[1] for k, v in slopes.items()},
+              "matmul_us": {k: ms * 1e3 for k, ms in mm.items()}}
+    times = {"vpu_cal": (p2_ms, p2_plain), "epi_prims": (p1_ms, p1_plain)}
+    return launches, {"vpu_cal": p2_err, "epi_prims": p1_err}, times, \
+        bounds, probes
 
 
 def main():
@@ -921,19 +1131,21 @@ def main():
         light = GuroIllumination([0, 0, 1]).light_direction
         sort_err, raster_err, inputs = phase_kernels(scenes, light)
         launches, results = phase_main(scenes)
-        frame_ms, kt = phase_timing(scenes, results, inputs, light)
+        frame_ms, kt, bounds = phase_timing(scenes, results, inputs, light)
         large = load_large_scenes("cuda", scenes)
         binsort_err, b3_err, large_inputs = phase_kernels_large(large, light)
         large_launches, large_results = phase_large(large)
-        large_ms, large_kt = phase_timing_large(large, large_results,
-                                                large_inputs, light)
+        large_ms, large_kt, large_bounds = phase_timing_large(
+            large, large_results, large_inputs, light)
         tt_model = turntable_model(DEVICE)
         sweep_launches, sweep_renderers, sweep_colors = phase_sweep(tt_model,
                                                                     light)
         sweep_err = phase_kernels_sweep(tt_model, sweep_colors, light)
-        sweep_ms, sweep_kt = phase_timing_sweep(sweep_renderers, tt_model,
-                                                sweep_colors, light, frame_ms)
-        b5_launches, b5_err, b5_kt = phase_b5(scenes)
+        sweep_ms, sweep_kt, sweep_bound = phase_timing_sweep(
+            sweep_renderers, tt_model, sweep_colors, light, frame_ms)
+        b5_launches, b5_err, b5_kt, b5_bound = phase_b5(scenes)
+        (probe_launches, probe_err, probe_ms, probe_bounds,
+         probes) = phase_probes()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -942,40 +1154,44 @@ def main():
     frame_ms["binning_routes_sphere16k@1024"] = {
         "counting_sort_ms": large_kt["routes_sphere16k@1024"][0],
         "sort_searchsorted_ms": large_kt["routes_sphere16k@1024"][1]}
+
+    def entry(name, source, replaces, n, err, times, bound, library=None):
+        return {"name": name, "route": "cuda",
+                "source": f"cython3dmodelrenderer_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": times[0], "plain_ms": times[1], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library}
+
+    pkg = "cython3dmodelrenderer_tpu/ops/"
     kernels = [
-        {"name": "raster_tiles (B1)", "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/raster.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/raster_pallas.py:293",
-         "launches": launches["raster"], "max_abs_err": raster_err,
-         "ms": kt["raster"][0], "plain_ms": kt["raster"][1]},
-        {"name": "sort_i32 (B2)", "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/sort.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/sort_pallas.py:32",
-         "launches": launches["sort"], "max_abs_err": sort_err,
-         "ms": kt["sort"][0], "plain_ms": kt["sort"][1]},
-        {"name": "bin_sort (B4)", "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/binsort.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/binsort_pallas.py:42",
-         "launches": large_launches["binsort"], "max_abs_err": binsort_err,
-         "ms": large_kt["binsort"][0], "plain_ms": large_kt["binsort"][1]},
-        {"name": "raster_tiles on bin_sort bins (B3)", "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/raster.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/raster_pallas.py:142",
-         "launches": large_launches["raster"], "max_abs_err": b3_err,
-         "ms": large_kt["b3_route"][0], "plain_ms": large_kt["b3_route"][1]},
-        {"name": "raster_tiles view-batched (B1/B3 tiles_per_view)",
-         "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/raster.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/raster_pallas.py:293",
-         "launches": sweep_launches["raster_batched"],
-         "max_abs_err": sweep_err, "ms": sweep_kt[0], "plain_ms": sweep_kt[1]},
-        {"name": "bin_sort_grouped (B5)", "route": "cuda",
-         "source": "cython3dmodelrenderer_tpu_torch/csrc/binsort_grouped.cu",
-         "replaces": "cython3dmodelrenderer_tpu/ops/binsort_pallas.py:106",
-         "launches": b5_launches, "max_abs_err": b5_err, "ms": b5_kt[0],
-         "plain_ms": b5_kt[1]},
+        entry("raster_tiles (B1)", "raster.cu", pkg + "raster_pallas.py:293",
+              launches["raster"], raster_err, kt["raster"], bounds["raster"]),
+        # B2's plain version is torch.sort itself: its time is the library's
+        entry("sort_i32 (B2)", "sort.cu", pkg + "sort_pallas.py:32",
+              launches["sort"], sort_err, kt["sort"], bounds["sort"],
+              library=kt["sort"][1]),
+        entry("bin_sort (B4)", "binsort.cu", pkg + "binsort_pallas.py:42",
+              large_launches["binsort"], binsort_err, large_kt["binsort"],
+              large_bounds["binsort"]),
+        entry("raster_tiles on bin_sort bins (B3)", "raster.cu",
+              pkg + "raster_pallas.py:142", large_launches["raster"], b3_err,
+              large_kt["b3_route"], large_bounds["b3_route"]),
+        entry("raster_tiles view-batched (B1/B3 tiles_per_view)", "raster.cu",
+              pkg + "raster_pallas.py:293", sweep_launches["raster_batched"],
+              sweep_err, sweep_kt, sweep_bound),
+        entry("bin_sort_grouped (B5)", "binsort_grouped.cu",
+              pkg + "binsort_pallas.py:106", b5_launches, b5_err, b5_kt,
+              b5_bound),
+        entry("vpu_cal (P2)", "vpu_cal.cu", "tools/probes/vpu_cal.py:51",
+              probe_launches["vpu_cal"], probe_err["vpu_cal"],
+              probe_ms["vpu_cal"], probe_bounds["vpu_cal"]),
+        entry("epi_prims epi_cur6 x128 (P1)", "epi_prims.cu",
+              "tools/probes/epi_prims.py:275", probe_launches["epi_prims"],
+              probe_err["epi_prims"], probe_ms["epi_prims"],
+              probe_bounds["epi_prims"]),
     ]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
+    print(json.dumps({"probes": probes}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

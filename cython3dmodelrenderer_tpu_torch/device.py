@@ -1,7 +1,8 @@
 """Explicit device resolution.
 
-Nothing in the port picks a device on its own: ``None`` means the CPU, and
-asking for a CUDA device that is not there raises instead of falling back.
+The port's entry points run on the card unless the caller asks for the
+CPU: ``None`` means the current CUDA device, and without CUDA that raises
+instead of falling back. ``"cpu"`` is the only way onto the CPU.
 """
 from __future__ import annotations
 
@@ -9,14 +10,17 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → CPU; ``"cuda"``/``"cuda:N"``/``torch.device`` as given.
+    """``None`` → the current CUDA device; ``"cpu"``, ``"cuda"``,
+    ``"cuda:N"`` or a ``torch.device`` as given.
 
-    Raises ``RuntimeError`` for a CUDA device when CUDA is unavailable.
+    Raises ``RuntimeError`` for ``None`` or a CUDA device when CUDA is
+    unavailable.
     """
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               "available (pass device='cpu' for the CPU)")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

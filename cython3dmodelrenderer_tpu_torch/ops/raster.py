@@ -54,6 +54,12 @@ PLAIN_PIXELS = 1 << 20  # pixels per pass of the plain raster's winner stage
 #: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``); a
 #: ``group > 1`` frame inside ``grouped_limits_ok`` takes the sort route
 GROUP = 16
+#: f32 instructions the walk of csrc/raster.cu needs per (pair, pixel)
+#: inside the pair's ceil bbox: 4 planes of 2 multiplies + 2 adds, 10
+#: compares (3 λ, 4 bbox, 2 z range, the depth test), 2 selects
+INSTR_PER_BBOX_PIXEL = 28
+#: ... and per (pair, pixel) outside it, where the 4 bbox compares decide
+INSTR_PER_OTHER_PIXEL = 4
 
 GBuffers = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -112,6 +118,53 @@ def _frame_shape(n_views: int, height: int, width: int, c: int):
     return (height, width, c) if n_views == 1 else (n_views, height, width, c)
 
 
+def _binned_pairs(tile_starts: torch.Tensor, tile_counts: torch.Tensor):
+    """(pair_tile, pos, n): each binned pair's stacked tile id and its
+    position in ``pair_tri``, tile by tile in bin order."""
+    dev = tile_counts.device
+    counts = tile_counts.to(torch.int64)
+    n = int(counts.sum())
+    pair_tile = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                        counts, output_size=n)
+    off = torch.cumsum(counts, 0) - counts
+    pos = (tile_starts.to(torch.int64)[pair_tile]
+           + torch.arange(n, device=dev) - off[pair_tile])
+    return pair_tile, pos, n
+
+
+def walk_instructions(rows: torch.Tensor, pair_tri: torch.Tensor,
+                      tile_starts: torch.Tensor, tile_counts: torch.Tensor,
+                      ntx: int, nty: int, height: int, width: int,
+                      n_views: int = 1) -> int:
+    """The f32 instructions these bins need for the walk: for each binned
+    pair, ``INSTR_PER_BBOX_PIXEL`` at the in-image pixels of its tile that
+    lie in its triangle's ceil bbox and ``INSTR_PER_OTHER_PIXEL`` at the
+    tile's other in-image pixels. The winners' epilogue is left out."""
+    tpv = ntx * nty
+    pair_tile, pos, n = _binned_pairs(tile_starts, tile_counts)
+    if n == 0:
+        return 0
+    tile = pair_tile % tpv
+    bbox = torch.ceil(rows[pair_tri[pos].to(torch.int64),
+                           binning.IDX_BBOX:binning.IDX_BBOX + 4].double())
+
+    def span(t0, size, limit, lo, hi):
+        """(the tile's pixels in the image, of them in [lo, hi)) along one
+        axis; a NaN bbox holds none."""
+        t0 = t0.double()
+        end = torch.clamp(t0 + size, max=limit)
+        inside = (torch.minimum(end, hi) - torch.maximum(t0, lo)).clamp(min=0)
+        return end - t0, torch.nan_to_num(inside, nan=0.0)
+
+    wx, ix = span((tile % ntx) * TILE_W, TILE_W, width, bbox[:, 0], bbox[:, 1])
+    wy, iy = span((tile // ntx) * TILE_H, TILE_H, height, bbox[:, 2],
+                  bbox[:, 3])
+    in_box = ix * iy
+    ops = (INSTR_PER_BBOX_PIXEL * in_box
+           + INSTR_PER_OTHER_PIXEL * (wx * wy - in_box))
+    return int(ops.sum())
+
+
 def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
                        tile_starts: torch.Tensor, tile_counts: torch.Tensor,
                        ntx: int, nty: int, height: int, width: int,
@@ -132,13 +185,7 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
     dev = rows.device
     hw = height * width
     n_pix = n_views * hw
-    counts = tile_counts.to(torch.int64)
-    n = int(counts.sum())
-    pair_tile = torch.repeat_interleave(torch.arange(tpv * n_views, device=dev),
-                                        counts, output_size=n)
-    off = torch.cumsum(counts, 0) - counts
-    pos = (tile_starts.to(torch.int64)[pair_tile]
-           + torch.arange(n, device=dev) - off[pair_tile])
+    pair_tile, pos, n = _binned_pairs(tile_starts, tile_counts)
     local = torch.arange(TILE_H * TILE_W, device=dev)
 
     def fragments(p0: int, p1: int):

@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .illumination import sqrt_rn
 
 
@@ -60,8 +61,11 @@ def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rotation_matrix(angles, degrees: bool = True,
                     device=None) -> torch.Tensor:
-    """The reference's Euler XYZ rotation matrix ``Rx @ Ry @ Rz``."""
-    ang = torch.as_tensor(np.asarray(angles, dtype=np.float32), device=device)
+    """The reference's Euler XYZ rotation matrix ``Rx @ Ry @ Rz``, on
+    ``device`` (the current CUDA device by default; ``"cpu"`` for the
+    CPU)."""
+    ang = torch.as_tensor(np.asarray(angles, dtype=np.float32),
+                          device=resolve_device(device))
     if degrees:
         ang = ang * (math.pi / 180.0)
     c, s = torch.cos(ang), torch.sin(ang)

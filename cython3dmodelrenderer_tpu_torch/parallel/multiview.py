@@ -84,7 +84,8 @@ def _pose_triangles(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     """Rotate triangles and normals by Euler angles (degrees), then
     translate the triangles: ``v @ Rᵀ + shift`` and ``n @ Rᵀ``
     (``multiview.py:64-77``)."""
-    rt = rotation_matrix(_host_f32(angles)).T.to(tri_verts.device)
+    rt = rotation_matrix(_host_f32(angles), device="cpu").T
+    rt = rt.to(tri_verts.device)
     shift = torch.as_tensor(_host_f32(post_shift), device=tri_verts.device)
     return _matmul3(tri_verts, rt) + shift, _matmul3(tri_norms, rt)
 

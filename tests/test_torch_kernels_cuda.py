@@ -1,10 +1,12 @@
 """Kernels B1 (raster, single-view and view-batched), B2 (sort), B4
-(counting-sort binning) and B5 (group-interleaved binning) against their
-plain PyTorch versions, and the sweep path on both backends.
+(counting-sort binning), B5 (group-interleaved binning) and the probes P1
+(epi_prims) and P2 (vpu_cal) against their plain PyTorch versions, and the
+sweep path on both backends.
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
-every comparison is exact. Run them there with ``python -m pytest
+every comparison is exact, except P1's summed primitives, which sum up to
+2 x 65,536 floats in another order than torch (rtol 2e-6). Run them there with ``python -m pytest
 --noconftest tests/test_torch_kernels_cuda.py`` (the repository's
 conftest imports jax).
 """
@@ -19,6 +21,7 @@ from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
                                                             visibility_masks)
 from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
 from cython3dmodelrenderer_tpu_torch.parallel import multiview
+from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
 from test_torch_multiview import tiny_scene
 from test_torch_raster import light_direction, random_scene
 
@@ -261,3 +264,44 @@ def test_bin_sort_grouped_kernel_matches_plain(cuda, size, t, cap):
     # a 128-slot cap keeps one group's chunk, whose tiles the first 128
     # pairs in triangle order may all miss
     assert placed > 0 or cap == "tiny"
+
+
+@pytest.mark.parametrize("n_ops", vpu_cal.N_OPS)
+def test_vpu_cal_kernel_matches_plain(cuda, n_ops):
+    x = vpu_cal.make_input(8, device=cuda)
+    before = vpu_cal.run_once.launches
+    got, again = vpu_cal.run_once(x, n_ops), vpu_cal.run_once(x, n_ops)
+    want = vpu_cal.run_once_plain(x, n_ops)
+    torch.cuda.synchronize()
+    assert vpu_cal.run_once.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not torch.isnan(got).any()
+    assert torch.equal(vpu_cal.run(x, n_ops), vpu_cal.run(x, n_ops, "torch"))
+
+
+@pytest.mark.parametrize("reps", [0, 2, 5])
+@pytest.mark.parametrize("name", epi_prims.ALL_PRIMS)
+def test_epi_prims_kernel_matches_plain(cuda, name, reps):
+    x, smat = epi_prims.make_input(cuda)
+    before = epi_prims.run.launches
+    got = epi_prims.run(name, reps, x, smat)
+    again = epi_prims.run(name, reps, x, smat)
+    want = epi_prims.run_plain(name, reps, x, smat)
+    torch.cuda.synchronize()
+    assert epi_prims.run.launches == before + 2
+    assert torch.equal(got, again)
+    if name in epi_prims.ELEMENT_PRIMS or reps == 0:
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-6, atol=0)
+
+
+def test_epi_prims_refuses_too_much_shared_memory(cuda):
+    """A launch asking for more dynamic shared memory than a block may
+    have (232,448 bytes on an H100) raises instead of returning zeros."""
+    x, smat = epi_prims.make_input(cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        epi_prims._launch("epi_cur8", 2, x, smat, smem_bytes=232448 + 4096)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        epi_prims._launch("epi_cur8", 2, x, smat, smem_bytes=1024)

@@ -133,7 +133,7 @@ def test_filler_routes_as_the_jax_filler(jax_frames, counting_route_only):
     import cython3dmodelrenderer_tpu_torch as pt
 
     name, h, w, fov, tris, colors, normals, *_rest = frames()[-1]
-    filler = pt.AdvancedPixelBufferFiller(h, w, fov=fov)
+    filler = pt.AdvancedPixelBufferFiller(h, w, fov=fov, device="cpu")
     assert filler._group == 16
     filler.render_arrays(*(torch.from_numpy(a) for a in (tris, normals, colors)),
                          post="lambert_u8", light=light_direction())

@@ -257,7 +257,8 @@ def test_renderer_render_sequence_wrapper(jax_out, jax_rotations, illum):
 
     shader = (pt.GuroIllumination([0.2, 0.1, 1.0]) if illum == "guro"
               else pt.NoIllumination())
-    renderer = pt.Renderer(pt.AdvancedPixelBufferFiller(64, 64, fov=45),
+    renderer = pt.Renderer(pt.AdvancedPixelBufferFiller(64, 64, fov=45,
+                                                          device="cpu"),
                            shader, pt.SimpleIterator, 64, 64)
     angles = multiview.turntable_angles(3)
     for vb in (1, 3):
@@ -276,12 +277,14 @@ def test_renderer_render_sequence_untextured_and_fast(jax_rotations):
     """Fallback colours come from the Renderer's generator; fast shade
     equals the functional fast sweep; custom drawers are refused."""
     tris, normals, _colors = tiny_scene(20, 3)
-    model = pt.Model(tris.reshape(-1, 3), np.arange(60).reshape(20, 3))
+    model = pt.Model(tris.reshape(-1, 3), np.arange(60).reshape(20, 3),
+                     device="cpu")
     model_normals = model.normals_by_triangles
     angles = multiview.turntable_angles(2)
 
     def renderer(seed, shader=None):
-        return pt.Renderer(pt.AdvancedPixelBufferFiller(64, 64, fov=45),
+        return pt.Renderer(pt.AdvancedPixelBufferFiller(64, 64, fov=45,
+                                                          device="cpu"),
                            shader or pt.GuroIllumination([0, 0, 1]),
                            pt.SimpleIterator, 64, 64,
                            generator=torch.Generator().manual_seed(seed))
@@ -351,7 +354,8 @@ def test_filler_fast_shade(jax_out):
     tris, colors, normals = random_scene(80, 85)
     args = torch_scene(tris, normals, colors)
     light = pt.GuroIllumination([0.3, -0.2, 1.0]).light_direction
-    filler = pt.AdvancedPixelBufferFiller(64, 64, fov=60, fast_shade=True)
+    filler = pt.AdvancedPixelBufferFiller(64, 64, fov=60, fast_shade=True,
+                                           device="cpu")
     filler.render_arrays(*args, post="lambert_u8", light=light)
     (color, z, normal), img, _n = raster.render_frame(
         *args, RenderConfig(height=64, width=64, fov=60),

@@ -216,6 +216,47 @@ def test_u8_cast_truncates_and_wraps():
     assert got.tolist() == [0, 1, 254, 255, 0, 44, 0]
 
 
+def test_walk_instructions_counts_bbox_pixels():
+    """``walk_instructions`` against a pixel-by-pixel count: two views of a
+    3 x 2-tile frame with partial edge tiles, random bins, random bboxes
+    (some NaN, some past the frame)."""
+    from cython3dmodelrenderer_tpu_torch.ops import binning, raster
+
+    ntx, nty, n_views, height, width = 3, 2, 2, 24, 80
+    rng = np.random.default_rng(5)
+    n_tris = 40
+    rows = rng.uniform(-1, 1, (n_tris, binning.row_width(3))).astype(np.float32)
+    x0, y0 = rng.uniform(-10, 90, n_tris), rng.uniform(-5, 30, n_tris)
+    rows[:, binning.IDX_BBOX:binning.IDX_BBOX + 4] = np.stack(
+        [x0, x0 + rng.uniform(0, 40, n_tris), y0,
+         y0 + rng.uniform(0, 20, n_tris)], 1)
+    rows[3, binning.IDX_BBOX:binning.IDX_BBOX + 4] = np.nan
+    counts = rng.integers(0, 6, ntx * nty * n_views).astype(np.int32)
+    pair_tri = np.concatenate([np.sort(rng.choice(n_tris, c, replace=False))
+                               for c in counts]).astype(np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    counts[-1] = 0                                 # an empty bin
+    want = 0
+    for tile, (s, c) in enumerate(zip(starts, counts)):
+        local = tile % (ntx * nty)
+        xs = (local % ntx) * raster.TILE_W + np.arange(raster.TILE_W)
+        ys = (local // ntx) * raster.TILE_H + np.arange(raster.TILE_H)
+        px, py = np.meshgrid(xs[xs < width], ys[ys < height])
+        for tri in pair_tri[s:s + c]:
+            b = rows[tri, binning.IDX_BBOX:binning.IDX_BBOX + 4]
+            box = (px >= b[0]) & (px < b[1]) & (py >= b[2]) & (py < b[3])
+            want += (raster.INSTR_PER_BBOX_PIXEL * int(box.sum())
+                     + raster.INSTR_PER_OTHER_PIXEL * int((~box).sum()))
+    got = raster.walk_instructions(
+        torch.from_numpy(rows), torch.from_numpy(pair_tri),
+        torch.from_numpy(starts), torch.from_numpy(counts), ntx, nty,
+        height, width, n_views)
+    assert got == want > 0
+    empty = torch.zeros(ntx * nty, dtype=torch.int32)
+    assert raster.walk_instructions(torch.from_numpy(rows), empty[:0], empty,
+                                    empty, ntx, nty, height, width) == 0
+
+
 # ---------------------------------------------------------------------------
 # JAX reference (run as a script by ``jax_frames``)
 # ---------------------------------------------------------------------------

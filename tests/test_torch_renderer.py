@@ -36,11 +36,11 @@ def jax_render(tmp_path_factory):
 def port_model(ref):
     state = {k: ref[k] for k in ("vertices", "faces_v", "normals", "faces_n",
                                  "colors", "faces_vt")}
-    return pt.Model.from_state(state)
+    return pt.Model.from_state(state, device="cpu")
 
 
 def port_renderer(illum):
-    filler = pt.AdvancedPixelBufferFiller(SIZE, SIZE, fov=FOV)
+    filler = pt.AdvancedPixelBufferFiller(SIZE, SIZE, fov=FOV, device="cpu")
     return pt.Renderer(filler, illum, pt.SimpleIterator, SIZE, SIZE)
 
 
@@ -73,20 +73,21 @@ def test_from_state_round_trip(jax_render):
 
 
 def test_untextured_colours_come_from_the_generator(igor_sphere_path):
-    model = pt.Model.read_model(igor_sphere_path)
+    model = pt.Model.read_model(igor_sphere_path, device="cpu")
     model.rotate([-90, 180, 0])
     pt.fit_model(model)
     model.shift([0.0, 0.0, 1.0])
 
     def render(seed):
-        filler = pt.AdvancedPixelBufferFiller(32, 32, fov=FOV)
+        filler = pt.AdvancedPixelBufferFiller(32, 32, fov=FOV, device="cpu")
         r = pt.Renderer(filler, pt.NoIllumination(), pt.SimpleIterator, 32, 32,
                         generator=torch.Generator().manual_seed(seed))
         return r.render(model).get_image()
 
     assert np.array_equal(render(5), render(5))
     assert not np.array_equal(render(5), render(6))
-    white = pt.Renderer(pt.AdvancedPixelBufferFiller(32, 32, fov=FOV),
+    white = pt.Renderer(pt.AdvancedPixelBufferFiller(32, 32, fov=FOV,
+                                                      device="cpu"),
                         pt.NoIllumination(), pt.SimpleIterator, 32, 32)
     lit = white.render(model, random_colors=False).get_image()
     lit = lit[lit.max(-1) > 0]
@@ -94,10 +95,11 @@ def test_untextured_colours_come_from_the_generator(igor_sphere_path):
 
 
 def test_depth_iterator_order_and_reset(cube_path):
-    model = pt.Model.read_model(cube_path)
+    model = pt.Model.read_model(cube_path, device="cpu")
     model.rotate([30, 40, 0])
     pt.fit_model(model)
-    renderer = pt.Renderer(pt.AdvancedPixelBufferFiller(48, 48, fov=60),
+    renderer = pt.Renderer(pt.AdvancedPixelBufferFiller(48, 48, fov=60,
+                                                        device="cpu"),
                            pt.GuroIllumination([0, 0, 1]), pt.DepthIterator,
                            48, 48)
     assert renderer.render(model).get_image().max() > 0
@@ -115,7 +117,7 @@ def test_unported_paths_raise():
         def apply(self, color, n_buffer):
             return color
 
-    model = pt.Model(np.eye(3, dtype=np.float32), [[0, 1, 2]])
+    model = pt.Model(np.eye(3, dtype=np.float32), [[0, 1, 2]], device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         port_renderer(Custom()).render(model)
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
@@ -124,7 +126,7 @@ def test_unported_paths_raise():
         multiview.render_turntable(model, [])
     with pytest.raises(NotImplementedError, match="item 10"):
         pt.Renderer(pt.PixelBufferFiller(), pt.NoIllumination(),
-                    pt.SimpleIterator, 8, 8).render(model)
+                    pt.SimpleIterator, 8, 8, device="cpu").render(model)
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,7 @@ def test_strict_parse_raises(tmp_path):
 def test_pose_and_fit_match_jax(asset, request):
     path = request.getfixturevalue(asset)
     jm = pose(jx.Model.read_model(path))
-    pm = pose(pt.Model.read_model(path))
+    pm = pose(pt.Model.read_model(path, device="cpu"))
     np.testing.assert_allclose(pm.vertices.numpy(), np.asarray(jm.vertices),
                                rtol=0, atol=ATOL)
     np.testing.assert_allclose(pm.get_mean_vertex(), jm.get_mean_vertex(),
@@ -91,7 +91,8 @@ def test_vertex_normals_match_jax(asset, request):
 @pytest.mark.parametrize("asset", ["cube_path", "cube2_path"])
 def test_model_normals_after_pose_match_jax(asset, request):
     path = request.getfixturevalue(asset)
-    jm, pm = pose(jx.Model.read_model(path)), pose(pt.Model.read_model(path))
+    jm = pose(jx.Model.read_model(path))
+    pm = pose(pt.Model.read_model(path, device="cpu"))
     np.testing.assert_allclose(pm.normals_by_triangles.numpy(),
                                np.asarray(jm.normals_by_triangles),
                                rtol=0, atol=ATOL)
@@ -107,7 +108,7 @@ def test_face_normals_of_repeated_vertices_are_zero():
 @pytest.mark.parametrize("asset", ASSETS)
 def test_from_state_holds_the_jax_arrays(asset, request):
     jm = pose(jx.Model.read_model(request.getfixturevalue(asset)))
-    pm = pt.Model.from_state(jax_state(jm))
+    pm = pt.Model.from_state(jax_state(jm), device="cpu")
     for got, want in ((pm.vertices_by_triangles, jm.vertices_by_triangles),
                       (pm.normals_by_triangles, jm.normals_by_triangles)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -123,7 +124,8 @@ def test_texture_presampling_matches_jax():
     tc = rng.uniform(-0.1, 1.1, (6, 2)).astype(np.float32)
     tex = rng.randint(0, 256, (7, 5, 3)).astype(np.uint8)
     kw = dict(texture_coords=tc, triangles_texture_coords=faces, texture=tex)
-    jm, pm = jx.Model(verts, faces, **kw), pt.Model(verts, faces, **kw)
+    jm = jx.Model(verts, faces, **kw)
+    pm = pt.Model(verts, faces, **kw, device="cpu")
     np.testing.assert_array_equal(pm.colors_by_triangles.numpy(),
                                   np.asarray(jm.colors_by_triangles))
     vt, colors, normals = pm.get_triangle(1)
@@ -133,7 +135,8 @@ def test_texture_presampling_matches_jax():
 
 
 def test_shift_and_scale_match_jax(cube_path):
-    jm, pm = jx.Model.read_model(cube_path), pt.Model.read_model(cube_path)
+    jm, pm = jx.Model.read_model(cube_path), pt.Model.read_model(
+        cube_path, device="cpu")
     for m in (jm, pm):
         m.shift([0.25, -1.5, 3.0])
         m.scale(0.37)
@@ -144,13 +147,13 @@ def test_shift_and_scale_match_jax(cube_path):
 
 def test_depth_iterator_matches_jax(igor_sphere_path):
     jm = pose(jx.Model.read_model(igor_sphere_path))
-    pm = pt.Model.from_state(jax_state(jm))
+    pm = pt.Model.from_state(jax_state(jm), device="cpu")
     np.testing.assert_array_equal(pt.DepthIterator.order_indices(pm).numpy(),
                                   np.asarray(jx.DepthIterator.order_indices(jm)))
 
 
 def test_buffer_api_and_checkpoint(tmp_path):
-    buf = pt.Buffer(4, 8, dim=3, dtype="float32", init_val=7)
+    buf = pt.Buffer(4, 8, dim=3, dtype="float32", init_val=7, device="cpu")
     assert buf.get_size() == (4, 8) and buf.get_image()[0, 0, 0] == 7
     buf.set_pixel(2, 1, [1, 2, 3])
     np.testing.assert_array_equal(buf.get_pixel(2, 1), [1, 2, 3])
@@ -158,11 +161,11 @@ def test_buffer_api_and_checkpoint(tmp_path):
     buf[0, 0] = [5, 5, 5]
     np.testing.assert_array_equal(buf[0, 0], [5, 5, 5])
     buf.save(str(tmp_path / "b.npz"))
-    back = pt.Buffer.load(str(tmp_path / "b.npz"))
+    back = pt.Buffer.load(str(tmp_path / "b.npz"), device="cpu")
     np.testing.assert_array_equal(back.get_image(), buf.get_image())
     buf.clear()
     assert buf.get_image()[2, 1, 0] == 7
-    lazy = pt.Buffer(2, 2, dim=1)
+    lazy = pt.Buffer(2, 2, dim=1, device="cpu")
     calls = []
     lazy.set_lazy(lambda: calls.append(1) or torch.full((2, 2, 1), 3.0))
     assert not calls and lazy.get_image().max() == 3 and calls == [1]

@@ -31,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import cython3dmodelrenderer_tpu_torch as pt  # noqa: E402
+from cython3dmodelrenderer_tpu_torch.measure import smi  # noqa: E402
 
 
 def device_us(event) -> float:
@@ -91,7 +92,7 @@ def main():
     else:
         v, f = chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS)
     model = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
-    print(chip_smoke.smi_line())
+    print(smi("name,power.limit"))
     tag = f"{args.scene}@{args.size}"
     if args.b5:
         from cython3dmodelrenderer_tpu_torch.ops import binsort_grouped as bg
