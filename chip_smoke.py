@@ -9,13 +9,17 @@ Phases (one line each; any failure exits nonzero):
 
 1. device  — torch/CUDA versions and the card's name and power limit;
              fails when CUDA is unavailable (no CPU fallback);
-2. build   — builds kernels B1 (csrc/raster.cu), B2 (csrc/sort.cu), B4
-             (csrc/binsort.cu), B5 (csrc/binsort_grouped.cu), P2
+2. build   — builds kernels B1 (csrc/raster.cu), B2 and B4 (the radix-sort
+             core, csrc/radix_sort.cu), B5 (csrc/binsort_grouped.cu), P2
              (csrc/vpu_cal.cu) and P1 (csrc/epi_prims.cu) from the
              repository's sources, one nvcc each, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card:
-             B2 on random unique keys (exact), B1 on the binned 1024²
-             scenes for posts none/u8/lambert_u8 (bit-equal);
+             B2 (exact, and equal to itself on a second call) on keys
+             with duplicates at 0 to 2^18 + 17 keys, both sides of the
+             one-launch limit, at 25 bits and 31 (with INT32_MAX), on all
+             keys equal, and on each scene's pair keys at their width; B1
+             on the binned 1024² scenes for posts none/u8/lambert_u8
+             (bit-equal);
 4. main    — Renderer.render at 1024², fov 45, with GuroIllumination and
              NoIllumination, on (a) assets/igor_sphere.obj, (b) a
              16,128-triangle displaced UV sphere built in memory and
@@ -26,16 +30,22 @@ Phases (one line each; any failure exits nonzero):
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
              (CUDA events), and each kernel against its plain version;
+             B2 at sphere16k@1024²'s 17,473 pair keys beside torch.sort,
+             with device ms and device operations a call (torch.profiler);
 6. large   — the un-grouped (counting-sort) path: B4 against its plain
              version (bit-equal, and equal to itself on a second run) on
              the spans of sphere16k@2048², torus262k@1024² and @4096² (a
              262,144-triangle displaced torus built in memory) and on 0
-             and 1 pairs; B1 on B4's bins (the B3 route) against the plain
-             raster; Renderer.render on those three frames with both
-             illuminations, checked as in phase 4, B4 and B1 launched and
-             B2 not; rasterize() once; then their ms/frame (20 warm
-             frames), B4 and the B3 route against their plain versions at
-             torus262k@1024², and both routes' binning at sphere16k@1024²;
+             and 1 pairs, and with every pair in one tile (1,000 and
+             200,000 triangles); B1 on B4's bins (the B3 route) against
+             the plain raster; Renderer.render on those three frames with
+             both illuminations, checked as in phase 4, B4 and B1 launched
+             and B2 not; rasterize() once; then their ms/frame (20 warm
+             frames), B4's whole wrapper at torus262k@1024² and @4096²
+             (with torch.sort of the same pairs' tile ids, the sort step
+             alone, as a yardstick) and the B3 route against their plain
+             versions, device operations a call of both routes, and both
+             routes' binning at sphere16k@1024²;
 7. sweep   — the multi-view path: an 8-view turntable of sphere16k at
              1024² through Renderer.render_sequence with GuroIllumination
              and NoIllumination at view_batch 1, 2, 4 and 8 (1, 2 and 4 on
@@ -45,7 +55,9 @@ Phases (one line each; any failure exits nonzero):
              arrays, B1 launched N/V times a sweep, one view_batch=8
              sweep equal to the plain path; B1's view-batched launch
              against its plain version at view_batch 2 (bit-equal); then
-             ms per view per view_batch (CUDA events over the sweep / N);
+             ms per view per view_batch (CUDA events over the sweep / N),
+             and B2 at the view_batch=4 batch's pair keys beside
+             torch.sort;
 8. b5      — B5 (csrc/binsort_grouped.cu, on no render path) against its
              plain version on sphere16k@1024²'s spans, group 16, sub 8, at
              an ample and an undersized slot_cap: bit-equal in every
@@ -89,8 +101,13 @@ WARM_FRAMES = 60
 Z_FRAC_MAX, COLOR_FRAC_MAX = 5e-5, 1.5e-4
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
-KERNEL_SOURCES = ("sort", "raster", "binsort", "binsort_grouped", "vpu_cal",
+KERNEL_SOURCES = ("radix_sort", "raster", "binsort_grouped", "vpu_cal",
                   "epi_prims")
+# B2's checks: key counts and (key width, sort bits)
+SORT_CHECK_SIZES = (0, 1, 2, 1000, 17473, 78000, (1 << 17) - 1, 1 << 17,
+                    (1 << 17) + 1, (1 << 18) + 17)
+SORT_CHECK_WIDTHS = ((25, 25), (25, 31), (31, 31))
+ONE_TILE_TRIS = (1000, 200000)
 # the un-grouped (counting-sort) path: frames past grouped_limits_ok
 LARGE_FRAMES = (("sphere16k", 2048), ("torus262k", 1024), ("torus262k", 4096))
 LARGE_WARM_FRAMES = 20
@@ -343,14 +360,12 @@ def raster_bound(kw):
     return roofline_ms(moved, ops)
 
 
-def sort_bound(keys):
-    """B2: keys read and written once; n log2 n comparisons."""
-    import math
-
+def sort_bound(keys, bits):
+    """B2: keys read and written once; a digit extraction and a rank a key
+    a pass (``ceil(bits / 8)`` passes)."""
     from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
 
-    n = keys.numel()
-    return roofline_ms(2 * nbytes(keys), n * math.ceil(math.log2(max(n, 2))))
+    return roofline_ms(2 * nbytes(keys), 2 * keys.numel() * -(-bits // 8))
 
 
 def binning_bound(spans, outputs, pairs):
@@ -361,19 +376,40 @@ def binning_bound(spans, outputs, pairs):
     return roofline_ms(nbytes(*spans[:4], *outputs), 2 * pairs)
 
 
+def pair_keys(spans):
+    """The packed pair keys ``bin_pairs`` gives B2 for ``spans``, and their
+    width in bits."""
+    from cython3dmodelrenderer_tpu_torch.ops import binsort
+
+    tx0, cx, ty0, cy, ntx, nty, total = spans
+    tri_bits = binsort.key_bits(tx0.shape[0], ntx * nty)
+    tri_p, tile_p = binsort.expand_pairs(tx0, cx, ty0, cy, ntx, total)
+    return (tile_p << tri_bits) | tri_p, tri_bits + binsort.tile_bits(ntx * nty)
+
+
 def frame_inputs(model, post):
     """The binned raster inputs a 1024² main-path frame of ``model`` gives
-    kernel B1 (and its pair keys, B2's input)."""
+    kernel B1 (and its pair keys and their width, B2's input)."""
     from cython3dmodelrenderer_tpu_torch.ops import binsort
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32_plain
 
     kw, spans = frame_setup(model, post, SIZE)
-    tx0, cx, ty0, cy, ntx, nty, total = spans
-    tri_bits = binsort.key_bits(tx0.shape[0], ntx * nty)
-    tri_p, tile_p = binsort.expand_pairs(tx0, cx, ty0, cy, ntx, total)
-    keys = (tile_p << tri_bits) | tri_p
     bins = binsort.bin_pairs(*spans, sort=sort_i32_plain)
-    return with_bins(kw, bins), keys
+    return with_bins(kw, bins), pair_keys(spans)
+
+
+def check_keys(gen, n, width):
+    """``n`` keys in [0, 2^width) with runs of duplicates, holding
+    2^width - 1 (INT32_MAX at width 31) and 0."""
+    import torch
+
+    keys = torch.randint(0, 1 << width, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    if n:
+        keys[::7] = keys[0].clone()
+    keys[1::11] = (1 << width) - 1
+    keys[2::13] = 0
+    return keys.to(torch.int32)
 
 
 def compare_gbuffers(got, want):
@@ -396,22 +432,40 @@ def phase_kernels(scenes, light):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     sort_err = 0
-    for n in (1, 1000, 24576, 1 << 15, (1 << 18) + 17):
-        # unique non-negative keys spread over [0, 2^29)
-        perm = torch.randperm(4 * n, generator=gen, device="cuda")[:n]
-        keys = (perm * 511 + 3).to(torch.int32)
-        got, want = sort_i32(keys), sort_i32_plain(keys)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"B2 sort disagrees at n={n}")
-        sort_err = max(sort_err, int((got - want).abs().max()))
-    say("kernels", "B2 sort == torch.sort at n = 1, 1000, 24576, 32768, 262161")
+    for n in SORT_CHECK_SIZES:
+        for width, bits in SORT_CHECK_WIDTHS:
+            keys = check_keys(gen, n, width)
+            got, again = sort_i32(keys, bits), sort_i32(keys, bits)
+            want = sort_i32_plain(keys)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"B2 sort disagrees at n={n}, width {width}, bits {bits}")
+            require(torch.equal(got, again),
+                    f"B2 sort: two runs differ at n={n}, bits {bits}")
+            if n:
+                sort_err = max(sort_err, int((got - want).abs().max()))
+    say("kernels", f"B2 sort == torch.sort, deterministic, at n = "
+        f"{SORT_CHECK_SIZES} x (key width, bits) {SORT_CHECK_WIDTHS}")
+    for n in (17473, 200000):                  # one hot bucket every pass
+        keys = torch.full((n,), (1 << 31) - 1, dtype=torch.int32,
+                          device="cuda")
+        require(torch.equal(sort_i32(keys, 31), keys),
+                f"B2 sort: {n} equal keys come back changed")
+    say("kernels", "B2 sort: 17,473 and 200,000 equal keys unchanged")
 
     raster_err = 0.0
     inputs = {}
     for name, model in scenes.items():
         for post in ("none", "u8", "lambert_u8"):
-            kw, keys = frame_inputs(model, post)
-            inputs.setdefault(name, {})[post] = (kw, keys)
+            kw, (keys, bits) = frame_inputs(model, post)
+            inputs.setdefault(name, {})[post] = (kw, (keys, bits))
+            if post == "lambert_u8":
+                got = sort_i32(keys, bits)
+                require(torch.equal(got, sort_i32_plain(keys)),
+                        f"B2 sort disagrees on {name}'s {keys.numel()} pair "
+                        f"keys at {bits} bits")
+                say("kernels", f"B2 sort {name}: {keys.numel()} pair keys at "
+                    f"{bits} bits == torch.sort")
             lt = light if post == "lambert_u8" else None
             g_k, i_k = raster_tiles(**kw, light=lt, gbuffer=post == "none",
                                     image=post != "none")
@@ -447,6 +501,15 @@ def synthetic_spans(n_tris, ntx, nty, n_live):
     return (live * (ntx // 2), live, live * (nty // 3), live, ntx, nty, n_live)
 
 
+def one_tile_spans(n_tris, ntx, nty):
+    """Spans of ``n_tris`` triangles that all cover the one tile
+    (ntx // 2, nty // 3): one hot digit bucket in every radix pass."""
+    import torch
+
+    ones = torch.ones(n_tris, dtype=torch.int32, device="cuda")
+    return (ones * (ntx // 2), ones, ones * (nty // 3), ones, ntx, nty, n_tris)
+
+
 def phase_kernels_large(scenes, light):
     """B4 against its plain version at the un-grouped frames' spans, and
     B1 on B4's bins (the B3 route) against the plain raster."""
@@ -460,6 +523,8 @@ def phase_kernels_large(scenes, light):
     cases = [(f"{name}@{size}", frame_setup(scenes[name], "lambert_u8", size)[1])
              for name, size in LARGE_FRAMES]
     cases += [(f"{n} pair", synthetic_spans(4096, 32, 64, n)) for n in (0, 1)]
+    cases += [(f"one tile x {n}", one_tile_spans(n, 32, 64))
+              for n in ONE_TILE_TRIS]
     binsort_err = 0
     for tag, spans in cases:
         got, again, want = bin_sort(*spans), bin_sort(*spans), bin_sort_plain(*spans)
@@ -687,17 +752,17 @@ def phase_timing(scenes, results, inputs, light):
     from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
                                                             raster_tiles_plain)
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
 
     frame_ms = {}
     for (name, iname), (renderer, *_rest) in results.items():
         frame_ms[f"{name}/{iname}"] = time_frames(f"{name} {iname}", renderer,
                                                   scenes[name], WARM_FRAMES)
     # the kernels at the main path's shapes: the 16k-triangle sphere's frame
-    kw, keys = inputs["sphere16k"]["lambert_u8"]
+    kw, (keys, bits) = inputs["sphere16k"]["lambert_u8"]
+    sort_ms = time_sort("sphere16k@1024 pair keys", keys, bits)
+    frame_ms["sort_sphere16k@1024"] = sort_ms
     kt = {
-        "sort": (cuda_time_ms(lambda: sort_i32(keys), 100),
-                 cuda_time_ms(lambda: sort_i32_plain(keys), 100)),
+        "sort": (sort_ms["b2"]["ms"], sort_ms["torch_sort"]["ms"]),
         "raster": (cuda_time_ms(lambda: raster_tiles(**kw, light=light,
                                                   gbuffer=False, image=True),
                              100),
@@ -708,17 +773,40 @@ def phase_timing(scenes, results, inputs, light):
     for k, (ms, plain) in kt.items():
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(sphere16k lambert_u8 frame: {keys.numel()} pair keys)")
-    bounds = {"sort": sort_bound(keys), "raster": raster_bound(kw)}
+    bounds = {"sort": sort_bound(keys, bits), "raster": raster_bound(kw)}
     return frame_ms, kt, bounds
+
+
+def time_sort(tag, keys, bits):
+    """B2 beside torch.sort on ``keys``: CUDA-event ms a call (both) and
+    device ms and device operations a call (torch.profiler)."""
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops import sort
+
+    out = {}
+    for name, fn in (("b2", lambda: sort.sort_i32(keys, bits)),
+                     ("torch_sort", lambda: sort.sort_i32_plain(keys))):
+        dev_ms, ops = profile_calls(fn, 20)
+        out[name] = {"ms": cuda_time_ms(fn, 100), "device_ms": dev_ms,
+                     "device_ops": ops}
+    plan = sort.plan(keys.numel(), bits)
+    say("timing", f"B2 {tag} ({keys.numel()} keys, {bits} bits, "
+        f"{plan.passes} passes, {'one launch' if plan.one_launch else 'onesweep'}"
+        f"): {out['b2']['ms']:.4f} ms a call (CUDA events), device "
+        f"{out['b2']['device_ms']} ms in {out['b2']['device_ops']} device "
+        f"operations; torch.sort {out['torch_sort']['ms']:.4f} ms, device "
+        f"{out['torch_sort']['device_ms']} ms in "
+        f"{out['torch_sort']['device_ops']} operations")
+    return out
 
 
 def phase_timing_large(scenes, results, inputs, light):
     """The un-grouped frames; B4 and the B3 route against their plain
     versions at torus262k@1024; both routes' binning at sphere16k@1024."""
-    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
-    from cython3dmodelrenderer_tpu_torch.ops.binsort import (bin_pairs,
-                                                             bin_sort,
-                                                             bin_sort_plain)
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_pairs, bin_sort
     from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
                                                             raster_tiles_plain)
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
@@ -727,15 +815,19 @@ def phase_timing_large(scenes, results, inputs, light):
     for (name, size, iname), (renderer, *_rest) in results.items():
         frame_ms[f"{name}@{size}/{iname}"] = time_frames(
             f"{name}@{size} {iname}", renderer, scenes[name], LARGE_WARM_FRAMES)
+    for name, size in LARGE_FRAMES[1:]:                # torus262k@1024, @4096
+        spans = frame_setup(scenes[name], "lambert_u8", size)[1]
+        frame_ms[f"bin_sort_{name}@{size}"] = time_bin_sort(f"{name}@{size}",
+                                                            spans)
     name, size = LARGE_FRAMES[1]                       # torus262k@1024
     spans = frame_setup(scenes[name], "lambert_u8", size)[1]
     kw = inputs[(name, size, "lambert_u8")]
     opts = dict(light=light, gbuffer=False, image=True)
     bounds = {"binsort": binning_bound(spans, bin_sort(*spans), spans[-1]),
               "b3_route": raster_bound(kw)}
+    b4 = frame_ms[f"bin_sort_{name}@{size}"]
     kt = {
-        "binsort": (cuda_time_ms(lambda: bin_sort(*spans), 50),
-                    cuda_time_ms(lambda: bin_sort_plain(*spans), 50)),
+        "binsort": (b4["ms"], b4["plain_ms"]),
         "b3_route": (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 50),
                      cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts), 10)),
     }
@@ -743,13 +835,51 @@ def phase_timing_large(scenes, results, inputs, light):
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"({name}@{size} lambert_u8: {spans[-1]} pairs)")
     small = frame_setup(scenes["sphere16k"], "lambert_u8", SIZE)[1]
-    count_ms = cuda_time_ms(lambda: bin_sort(*small), 100)
-    sort_ms = cuda_time_ms(lambda: bin_pairs(*small, sort=sort_i32), 100)
+    routes = {"counting_sort": lambda: bin_sort(*small),
+              "sort_searchsorted": lambda: bin_pairs(*small, sort=sort_i32)}
+    out = {}
+    for route, fn in routes.items():
+        dev_ms, ops = profile_calls(fn, 20)
+        out[route] = {"ms": cuda_time_ms(fn, 100), "device_ms": dev_ms,
+                      "device_ops": ops}
     say("timing", f"binning sphere16k@{SIZE} ({small[-1]} pairs): counting-sort "
-        f"route (B4) {count_ms:.4f} ms, sort route (B2 + searchsorted) "
-        f"{sort_ms:.4f} ms")
-    kt["routes_sphere16k@1024"] = (count_ms, sort_ms)
+        f"route (B4) {out['counting_sort']['ms']:.4f} ms, device "
+        f"{out['counting_sort']['device_ms']} ms in "
+        f"{out['counting_sort']['device_ops']} device operations; sort route "
+        f"(B2 + searchsorted) {out['sort_searchsorted']['ms']:.4f} ms, device "
+        f"{out['sort_searchsorted']['device_ms']} ms in "
+        f"{out['sort_searchsorted']['device_ops']} operations")
+    frame_ms[f"binning_routes_sphere16k@{SIZE}"] = out
     return frame_ms, kt, bounds
+
+
+def time_bin_sort(tag, spans):
+    """B4's whole wrapper against its plain version (CUDA-event ms a call),
+    its device ms and device operations a call (torch.profiler), and, on
+    an earlier line, torch.sort of the same pairs' tile ids alone."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops import binsort
+
+    _tri_p, tile_p = binsort.expand_pairs(*spans[:4], spans[4], spans[6])
+    sort_ms = cuda_time_ms(lambda: torch.sort(tile_p, stable=True), 50)
+    say("timing", f"yardstick {tag}: torch.sort(tile_p, stable=True) of its "
+        f"{spans[-1]} pairs' tile ids alone {sort_ms:.4f} ms")
+    dev_ms, ops = profile_calls(lambda: binsort.bin_sort(*spans), 20)
+    out = {"ms": cuda_time_ms(lambda: binsort.bin_sort(*spans), 50),
+           "plain_ms": cuda_time_ms(lambda: binsort.bin_sort_plain(*spans), 20),
+           "device_ms": dev_ms, "device_ops": ops,
+           "planned_ops": binsort.bin_sort_plan(spans[0].shape[0],
+                                                spans[4] * spans[5],
+                                                spans[6]).launches,
+           "torch_sort_tile_ids_ms": sort_ms}
+    say("timing", f"B4 bin_sort {tag} ({spans[-1]} pairs, {spans[4] * spans[5]}"
+        f" tiles): whole wrapper {out['ms']:.4f} ms a call (CUDA events), "
+        f"plain {out['plain_ms']:.4f} ms; device {dev_ms} ms in {ops} device "
+        f"operations a call (planned {out['planned_ops']})")
+    return out
 
 
 def turntable_model(device):
@@ -864,8 +994,9 @@ def phase_sweep(model, light):
     return launches, renderers, colors
 
 
-def sweep_batch_inputs(model, colors, post, vb=2):
-    """The stacked rows and bins B1 gets from a view_batch=vb sweep batch."""
+def sweep_batch_planes(model, colors, post, vb):
+    """The stacked plane rows of a view_batch=vb sweep batch and its spans
+    on the ntx x vb·nty stacked grid (bin_sort's input)."""
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops import raster
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
@@ -875,8 +1006,19 @@ def sweep_batch_inputs(model, colors, post, vb=2):
         model.vertices_by_triangles, model.normals_by_triangles, colors,
         sweep_angles()[:vb], sweep_shifts()[:vb], config, lean=post == "u8")
     ntx, nty = SIZE // raster.TILE_W, SIZE // raster.TILE_H
-    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
-                             16, "cuda", vb)
+    return rows, (tx0, cx, ty0, cy, ntx, vb * nty, int(counts.sum()))
+
+
+def sweep_batch_inputs(model, colors, post, vb=2):
+    """The stacked rows and bins B1 gets from a view_batch=vb sweep batch."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    rows, (tx0, cx, ty0, cy, ntx, _stacked_nty, total) = sweep_batch_planes(
+        model, colors, post, vb)
+    nty = SIZE // raster.TILE_H
+    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, 16, "cuda", vb)
     kw = dict(rows=rows, ntx=ntx, nty=nty, height=SIZE, width=SIZE,
               n_attrs=3 if post == "u8" else 6, z_init=config.z_init,
               n_views=vb)
@@ -934,6 +1076,8 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
         out[f"sweep_guro_fast_vb{vb}"] = ms / SWEEP_VIEWS
         say("timing", f"sweep guro fast view_batch={vb}: "
             f"{ms / SWEEP_VIEWS:.4f} ms/view")
+    keys, bits = pair_keys(sweep_batch_planes(model, colors, "lambert_u8", 4)[1])
+    out["sort_vb4"] = time_sort("view_batch=4 batch pair keys", keys, bits)
     kw = sweep_batch_inputs(model, colors, "lambert_u8")
     opts = dict(light=light, gbuffer=False, image=True)
     kt = (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 100),
@@ -1151,9 +1295,6 @@ def main():
         return 1
     frame_ms.update(large_ms)
     frame_ms["sweep_ms_per_view"] = sweep_ms
-    frame_ms["binning_routes_sphere16k@1024"] = {
-        "counting_sort_ms": large_kt["routes_sphere16k@1024"][0],
-        "sort_searchsorted_ms": large_kt["routes_sphere16k@1024"][1]}
 
     def entry(name, source, replaces, n, err, times, bound, library=None):
         return {"name": name, "route": "cuda",
@@ -1167,10 +1308,10 @@ def main():
         entry("raster_tiles (B1)", "raster.cu", pkg + "raster_pallas.py:293",
               launches["raster"], raster_err, kt["raster"], bounds["raster"]),
         # B2's plain version is torch.sort itself: its time is the library's
-        entry("sort_i32 (B2)", "sort.cu", pkg + "sort_pallas.py:32",
+        entry("sort_i32 (B2)", "radix_sort.cu", pkg + "sort_pallas.py:32",
               launches["sort"], sort_err, kt["sort"], bounds["sort"],
               library=kt["sort"][1]),
-        entry("bin_sort (B4)", "binsort.cu", pkg + "binsort_pallas.py:42",
+        entry("bin_sort (B4)", "radix_sort.cu", pkg + "binsort_pallas.py:42",
               large_launches["binsort"], binsort_err, large_kt["binsort"],
               large_bounds["binsort"]),
         entry("raster_tiles on bin_sort bins (B3)", "raster.cu",

@@ -11,8 +11,7 @@
 // and is stored only when pos < bound[t] and r < b * sub; an unstored pair
 // still counts in the ranks of the pairs after it. The TPU kernel got the
 // ranks from ONE scalar loop bumping a per-tile cursor in SMEM. Here the
-// ranks are computed in parallel and deterministically, as B4 computes its
-// bin positions (csrc/binsort.cu):
+// ranks are computed in parallel and deterministically:
 //
 //  * the pairs are cut into blocks of K consecutive pairs;
 //  * pass A (group_count_kernel) counts each block's pairs per tile into
@@ -32,7 +31,7 @@
 // launch latency; pass B's warp steps are a chain of dependent cursor
 // round trips through L1/L2, K / 32 steps per warp, so K sets its critical
 // path and the table's size (zeroing, the wrapper's column scan) sets how
-// small K may be. The wrapper splits as B4 does (binsort.block_split).
+// small K may be (binsort_grouped.block_split).
 //
 // The kernels walk the first n_pairs pairs, the unclamped ones; the
 // sentinel tail is never read (the TPU kernel's unrolled loop read up to 7

@@ -1,6 +1,7 @@
 """Measurement helpers shared by ``chip_smoke.py``, the probes and the
 profiling tool: the card's data-sheet peaks and the roofline bound,
-CUDA-event timing, and nvidia-smi's reading of the card.
+CUDA-event timing, device time and device operations under
+``torch.profiler``, and nvidia-smi's reading of the card.
 """
 from __future__ import annotations
 
@@ -42,6 +43,44 @@ def cuda_time_ms(fn, n: int, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(event) -> float:
+    """Device time of a profiler entry (the attribute's name changed
+    across PyTorch versions)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        value = getattr(event, attr, None)
+        if value:
+            return value
+    return 0.0
+
+
+def device_entries(prof) -> list:
+    """The profiler's device entries (kernels, memsets, copies) that took
+    device time, one per name."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+
+
+def profile_calls(fn, n: int, warmup: int = 5):
+    """(device ms, device operations) per call of ``fn`` over ``n`` calls
+    under ``torch.profiler``; (None, None) when it sees no device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    entries = device_entries(prof)
+    if not entries:
+        return None, None
+    return (sum(device_us(e) for e in entries) / n / 1e3,
+            sum(e.count for e in entries) / n)
 
 
 def smi(fields: str) -> str:

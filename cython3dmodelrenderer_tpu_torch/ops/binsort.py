@@ -14,7 +14,7 @@ ops/binsort_pallas.py::bin_gather_grouped`` (``:437-624``) the port needs:
    triangle order, each triangle's tiles in row-major (dy, dx) order —
    exactly what ``_expand_pairs`` (``:182-242``) enumerates;
 2. pack each pair as ``(tile << tri_bits) | tri`` and sort the keys with
-   kernel B2 (``ops/sort.py``);
+   kernel B2 (``ops/sort.py``) on their ``tri_bits + tile_bits`` bits;
 3. cut the sorted keys into per-tile runs with a ``searchsorted``.
 
 The int32 key bounds this route (``key_bits``); ``render_frame`` takes it
@@ -23,8 +23,9 @@ only inside ``grouped_limits_ok``, which implies the bound.
 **Counting-sort route** (``bin_sort``), the counterpart of
 ``binsort_pallas.bin_sort`` (TPU kernel ``_make_kernel``, ``:42``) as
 ``binning.bin_pairs_fast`` calls it: no pair key, so no bit limit. On a
-CUDA tensor it launches kernel B4 (``csrc/binsort.cu``); on a CPU tensor
-it runs ``bin_sort_plain``.
+CUDA tensor it runs B4 on the radix-sort core of ``csrc/radix_sort.cu``
+(expansion, a stable sort of the tile ids carrying the triangle ids, the
+bin starts); on a CPU tensor it runs ``bin_sort_plain``.
 
 The lane-class interleave, count-sorted group composition and capacity
 clamping of the JAX binners are TPU layout work with no counterpart: the
@@ -32,31 +33,36 @@ raster kernel reads each tile's run directly.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from .. import cuda_build
+from . import sort as radix
 from .sort import sort_i32
 
 Bins = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-#: B4's per-block cursor table holds at most this many int32 entries (64 MB)
-TABLE_ENTRIES = 1 << 24
-#: fewest consecutive triangles one B4 block places (its sequential walk)
-MIN_BLOCK_TRIS = 128
+#: triangles one B4 expansion CTA takes, tile counts one scan CTA takes
+#: (``csrc/radix_sort.cu``)
+EXPAND_TRIS = 1024
+SCAN_TILES = 1024
 
 
 def key_bits(n_tris: int, n_tiles: int) -> int:
     """Bits of the triangle field in a pair key; raises past 31 bits."""
     tri_bits = max(1, (n_tris - 1).bit_length())
-    tile_bits = max(1, (n_tiles - 1).bit_length())
-    if tri_bits + tile_bits > 31:
+    if tri_bits + tile_bits(n_tiles) > 31:
         raise ValueError(
-            f"{n_tris} triangles x {n_tiles} tiles need {tri_bits + tile_bits} "
-            "key bits; the int32 pair key holds 31")
+            f"{n_tris} triangles x {n_tiles} tiles need "
+            f"{tri_bits + tile_bits(n_tiles)} key bits; the int32 pair key "
+            "holds 31")
     return tri_bits
+
+
+def tile_bits(n_tiles: int) -> int:
+    """Bits of a tile id: ``ceil(log2 n_tiles)``, at least 1."""
+    return max(1, (n_tiles - 1).bit_length())
 
 
 def grouped_limits_ok(n_tris: int, slot_cap: int, ntx: int, nty: int) -> bool:
@@ -88,11 +94,13 @@ def expand_pairs(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
 
 def bin_pairs(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
               cy: torch.Tensor, ntx: int, nty: int, total: int,
-              sort: Callable[[torch.Tensor], torch.Tensor] = sort_i32) -> Bins:
+              sort: Callable[[torch.Tensor, int], torch.Tensor] = sort_i32
+              ) -> Bins:
     """Per-tile bins by sorting packed pair keys (the sort route).
 
-    ``sort`` is B2's wrapper or its plain version. Raises (``key_bits``)
-    when a pair key would not fit in int32.
+    ``sort(keys, bits)`` is B2's wrapper or its plain version; it gets the
+    keys' width, ``tri_bits + tile_bits``. Raises (``key_bits``) when a
+    pair key would not fit in int32.
     """
     n_tiles = ntx * nty
     tri_bits = key_bits(tx0.shape[0], n_tiles)
@@ -101,7 +109,7 @@ def bin_pairs(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
         zeros = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
         return torch.zeros(0, dtype=torch.int32, device=dev), zeros, zeros
     tri_p, tile_p = expand_pairs(tx0, cx, ty0, cy, ntx, total)
-    skeys = sort((tile_p << tri_bits) | tri_p)
+    skeys = sort((tile_p << tri_bits) | tri_p, tri_bits + tile_bits(n_tiles))
     pair_tri = skeys & ((1 << tri_bits) - 1)
     # int64 boundaries: n_tiles << tri_bits may reach 2^31
     bounds = torch.searchsorted(
@@ -132,26 +140,27 @@ def bin_sort_plain(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
             counts.to(torch.int32))
 
 
-def block_split(n_tris: int, n_tiles: int) -> Tuple[int, int]:
-    """(blocks, triangles per block) of B4 (B5 splits its pairs the same
-    way): blocks of at least ``MIN_BLOCK_TRIS`` consecutive triangles, as
-    many as the cursor table's ``TABLE_ENTRIES`` allow (a block's walk is
-    sequential, so more blocks shorten the critical path)."""
-    blocks = max(1, min(n_tris // MIN_BLOCK_TRIS,
-                        TABLE_ENTRIES // max(1, n_tiles)))
-    per_block = -(-n_tris // blocks)
-    return -(-n_tris // per_block), per_block
+class BinSortPlan(NamedTuple):
+    sort: radix.SortPlan   # the core's sort of the tile ids
+    scratch_words: int     # starts, counts, expansion and sort scratch
+    launches: int          # device operations of one call
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("binsort")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.binsort_count_launch.argtypes = [p, p, p, p, i, i, i, i, p, i, p]
-    lib.binsort_place_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, i,
-                                         i, p]
-    lib.binsort_count_launch.restype = ctypes.c_int
-    lib.binsort_place_launch.restype = ctypes.c_int
-    return lib
+def bin_sort_plan(n_tris: int, n_tiles: int, total: int) -> BinSortPlan:
+    """How ``bin_sort`` sizes a call (``csrc/radix_sort.cu::
+    binsort_launch``): one scratch of tile_starts, tile_counts, the
+    expansion's ticket and look-back words (one a ``EXPAND_TRIS``
+    triangles), the starts scan's (one a ``SCAN_TILES`` tiles) and the
+    sort's scratch. Launches: the memset, then with pairs the expansion,
+    the starts scan and the sort (one launch up to
+    ``sort.ONE_LAUNCH_MAX_KEYS`` pairs, one a pass past it)."""
+    sort_plan = radix.plan(total, tile_bits(n_tiles))
+    words = (2 * n_tiles + 2 + -(-n_tris // EXPAND_TRIS)
+             + -(-n_tiles // SCAN_TILES) + sort_plan.scratch_words)
+    if total == 0 or n_tris == 0:
+        return BinSortPlan(sort_plan, words, 1)
+    sort_launches = 1 if sort_plan.one_launch else sort_plan.passes
+    return BinSortPlan(sort_plan, words, 3 + sort_launches)
 
 
 def bin_sort(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
@@ -161,10 +170,11 @@ def bin_sort(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
     ``tx0, cx, ty0, cy`` (T,) int32 tile spans inside the ``ntx x nty``
     grid (a culled triangle has a zero span); ``total`` = Σ cx·cy. Returns
     the bins (module docstring), bit-equal to ``bin_sort_plain``. CUDA
-    tensors launch kernel B4: pass A counts each triangle block's pairs per
-    tile, ``torch.cumsum`` turns the counts into bin starts and per-block
-    cursors, pass B places the ids. CPU tensors run ``bin_sort_plain``;
-    any other device raises.
+    tensors run kernel B4 in one C call (``bin_sort_plan``): the expansion
+    writes the pairs and counts them per tile, the radix-sort core sorts
+    their tile ids stably carrying the triangle ids, a scan gives the bin
+    starts; ``tile_starts`` and ``tile_counts`` are views of one buffer.
+    CPU tensors run ``bin_sort_plain``; any other device raises.
     """
     _check_spans(tx0, cx, ty0, cy)
     if tx0.device.type == "cpu":
@@ -173,33 +183,22 @@ def bin_sort(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
         raise ValueError(f"bin_sort: unsupported device {tx0.device}")
     dev = tx0.device
     n_tris, n_tiles = tx0.shape[0], ntx * nty
+    sort_plan = bin_sort_plan(n_tris, n_tiles, total)
+    scratch = torch.empty(sort_plan.scratch_words, dtype=torch.int32, device=dev)
     pair_tri = torch.empty(total, dtype=torch.int32, device=dev)
-    if n_tris == 0:
-        zeros = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-        return pair_tri, zeros, zeros
-    blocks, per_block = block_split(n_tris, n_tiles)
-    spans = [t.data_ptr() for t in (tx0, cx, ty0, cy)]
-    lib = _lib()
-    stream = cuda_build.stream_handle(dev)
-    table = torch.zeros((blocks, n_tiles), dtype=torch.int32, device=dev)
-    err = lib.binsort_count_launch(*spans, n_tris, per_block, ntx, n_tiles,
-                                   table.data_ptr(), dev.index, stream)
-    cuda_build.check(lib, err, "bin_sort pass A (csrc/binsort.cu)")
-    counts = table.sum(0, dtype=torch.int32)
-    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    # block b's cursor for tile t: the bin start plus the pairs that the
-    # blocks before b place there (an exclusive scan down each column)
-    cursors = torch.cumsum(table, 0, dtype=torch.int32)
-    cursors -= table
-    cursors += starts
-    del table
-    err = lib.binsort_place_launch(*spans, n_tris, per_block, ntx, n_tiles,
-                                   cursors.data_ptr(), pair_tri.data_ptr(),
-                                   total, dev.index, stream)
-    cuda_build.check(lib, err, "bin_sort pass B (csrc/binsort.cu)")
-    bin_sort.launches += 1
-    return pair_tri, starts, counts
+    # the sorted keys, the ping-pong keys and values
+    work = torch.empty(3 * total, dtype=torch.int32, device=dev)
+    lib = radix._lib()
+    err = lib.binsort_launch(
+        *(t.data_ptr() for t in (tx0, cx, ty0, cy)), n_tris, ntx, n_tiles,
+        total, tile_bits(n_tiles), scratch.data_ptr(), work.data_ptr(),
+        pair_tri.data_ptr(), dev.index, cuda_build.stream_handle(dev))
+    cuda_build.check(lib, err, "bin_sort (csrc/radix_sort.cu)")
+    if total > 0 and n_tris > 0:
+        bin_sort.launches += 1
+    return pair_tri, scratch[:n_tiles], scratch[n_tiles:2 * n_tiles]
 
 
-#: kernel launches made by ``bin_sort`` (one per call on a CUDA tensor)
+#: calls of ``bin_sort`` that launched B4's kernels (one per call on a CUDA
+#: tensor with pairs)
 bin_sort.launches = 0

@@ -32,13 +32,28 @@ from typing import Callable, Tuple
 import torch
 
 from .. import cuda_build
-from .binsort import _check_spans, block_split, expand_pairs
+from .binsort import _check_spans, expand_pairs
 from .sort import sort_i32, sort_i32_plain
 
 TRI_BITS = 17                 # pair key: (tri << 14) | tile, 17 + 14 bits
 TILE_BITS = 14
+#: B5's per-block cursor table holds at most this many int32 entries (64 MB)
+TABLE_ENTRIES = 1 << 24
+#: fewest consecutive pairs one B5 block places (its warp's walk)
+MIN_BLOCK_PAIRS = 128
 
 Grouped = Tuple[torch.Tensor, ...]
+
+
+def block_split(n_items: int, n_cols: int) -> Tuple[int, int]:
+    """(blocks, items per block) of B5's passes: blocks of at least
+    ``MIN_BLOCK_PAIRS`` consecutive pairs, as many as the cursor table's
+    ``TABLE_ENTRIES`` allow (a block's walk is sequential, so more blocks
+    shorten the critical path)."""
+    blocks = max(1, min(n_items // MIN_BLOCK_PAIRS,
+                        TABLE_ENTRIES // max(1, n_cols)))
+    per_block = -(-n_items // blocks)
+    return -(-n_items // per_block), per_block
 
 
 def _check_limits(t: int, ntx: int, nty: int, slot_cap: int, group: int,
@@ -59,13 +74,14 @@ def _check_limits(t: int, ntx: int, nty: int, slot_cap: int, group: int,
 
 
 def compose_groups(tile_counts: torch.Tensor, group: int, sub: int,
-                   sort: Callable[[torch.Tensor], torch.Tensor] = sort_i32):
+                   sort: Callable[[torch.Tensor, int], torch.Tensor] = sort_i32):
     """``_compose_groups`` (``binsort_pallas.py:271``): tiles sorted by
     descending stripe demand ``ceil(count / sub)``, ascending tile id
     within equal demand, in consecutive ``group``-tuples. The packed key
-    ``(inv << 14) | tile`` is unique, so B2 (``sort``) and ``torch.sort``
-    agree. Returns (stids, sstripes, gchunks), padded with the sentinel
-    tile ``n_tiles`` to a multiple of ``group``."""
+    ``(inv << 14) | tile`` is unique, so B2 (``sort``, on the key's 31
+    bits) and ``torch.sort`` agree. Returns (stids, sstripes, gchunks),
+    padded with the sentinel tile ``n_tiles`` to a multiple of
+    ``group``."""
     n_tiles = tile_counts.numel()
     n_sorted = -(-n_tiles // group) * group
     dev = tile_counts.device
@@ -73,7 +89,7 @@ def compose_groups(tile_counts: torch.Tensor, group: int, sub: int,
     inv = ((1 << TRI_BITS) - 1) - torch.clamp(stripes, max=(1 << TRI_BITS) - 1)
     key = ((inv << TILE_BITS)
            | torch.arange(n_tiles, dtype=torch.int32, device=dev)).to(torch.int32)
-    skey = sort(key.contiguous())
+    skey = sort(key.contiguous(), TRI_BITS + TILE_BITS)
     stids = skey & ((1 << TILE_BITS) - 1)
     sstripes = ((1 << TRI_BITS) - 1) - (skey >> TILE_BITS)
     pad = n_sorted - n_tiles

@@ -16,7 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 from cython3dmodelrenderer_tpu.ops import binsort_pallas
 
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
-from cython3dmodelrenderer_tpu_torch.ops import binsort, raster
+from cython3dmodelrenderer_tpu_torch.ops import binsort, binsort_grouped, raster
 from test_torch_raster import light_direction, random_scene
 
 
@@ -103,13 +103,15 @@ def test_bin_sort_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
 
 
 def test_block_split_bounds_the_cursor_table():
-    assert binsort.block_split(16128, 2048) == (126, 128)
+    """B5's split of its pairs into the blocks of its cursor table."""
+    split = binsort_grouped.block_split
+    assert split(16128, 2048) == (126, 128)
     for t, tiles in [(1, 1), (300, 128), (1 << 18, 131072), (262144, 32768),
                      (5, 1 << 25)]:
-        blocks, per = binsort.block_split(t, tiles)
+        blocks, per = split(t, tiles)
         assert (blocks - 1) * per < t <= blocks * per
-        assert blocks * tiles <= max(binsort.TABLE_ENTRIES, tiles)
-        assert per >= min(t, binsort.MIN_BLOCK_TRIS)
+        assert blocks * tiles <= max(binsort_grouped.TABLE_ENTRIES, tiles)
+        assert per >= min(t, binsort_grouped.MIN_BLOCK_PAIRS)
 
 
 def test_bins_past_the_int32_pair_key():

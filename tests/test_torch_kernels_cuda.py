@@ -1,7 +1,7 @@
-"""Kernels B1 (raster, single-view and view-batched), B2 (sort), B4
-(counting-sort binning), B5 (group-interleaved binning) and the probes P1
-(epi_prims) and P2 (vpu_cal) against their plain PyTorch versions, and the
-sweep path on both backends.
+"""Kernels B1 (raster, single-view and view-batched), B2 (sort) and B4
+(counting-sort binning) on the radix-sort core, B5 (group-interleaved
+binning) and the probes P1 (epi_prims) and P2 (vpu_cal) against their
+plain PyTorch versions, and the sweep path on both backends.
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
@@ -16,7 +16,7 @@ import torch
 
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
-                                                 binsort_grouped, raster)
+                                                 binsort_grouped, raster, sort)
 from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
                                                             visibility_masks)
 from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
@@ -35,16 +35,58 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 2, 1000, 24576, 1 << 15, (1 << 18) + 17])
-def test_sort_kernel_matches_torch_sort(cuda, n):
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    keys = (torch.randperm(4 * n, generator=gen, device=cuda)[:n] * 511
-            + 3).to(torch.int32)
+SORT_SIZES = [0, 1, 2, 1000, 17473, 78000, (1 << 17) - 1,
+              sort.ONE_LAUNCH_MAX_KEYS, sort.ONE_LAUNCH_MAX_KEYS + 1,
+              (1 << 18) + 17]
+
+
+def sort_keys(cuda, n, width, seed):
+    """``n`` keys in [0, 2^width) with runs of duplicates, holding
+    2^width - 1 (INT32_MAX at width 31) and 0 when n allows."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    keys = torch.randint(0, 1 << width, (n,), generator=gen, device=cuda,
+                         dtype=torch.int64)
+    if n:
+        keys[::7] = keys[0].clone()
+    keys[1::11] = (1 << width) - 1
+    keys[2::13] = 0
+    return keys.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", SORT_SIZES)
+@pytest.mark.parametrize("width,bits", [(25, 25), (25, 31), (31, 31)])
+def test_sort_kernel_matches_torch_sort(cuda, n, width, bits):
+    """B2 == torch.sort bit for bit on the keys' own width and on 31 bits,
+    on both sides of the one-launch limit, and equal to itself on a second
+    call; one launch a call with keys."""
+    keys = sort_keys(cuda, n, width, n + bits)
     before = sort_i32.launches
-    got = sort_i32(keys)
+    got = sort_i32(keys, bits)
+    again = sort_i32(keys, bits)
     torch.cuda.synchronize()
+    assert got.shape == keys.shape
+    assert n == 0 or got.data_ptr() != keys.data_ptr()
     assert torch.equal(got, sort_i32_plain(keys))
-    assert sort_i32.launches == before + 1
+    assert torch.equal(got, again)
+    assert sort_i32.launches == before + 2 * (n > 0)
+
+
+@pytest.mark.parametrize("n", [17473, 200000])
+def test_sort_kernel_all_keys_equal(cuda, n):
+    """One hot digit bucket in every pass, on both paths."""
+    keys = torch.full((n,), (1 << 31) - 1, dtype=torch.int32, device=cuda)
+    got = sort_i32(keys, 31)
+    torch.cuda.synchronize()
+    assert torch.equal(got, keys)
+
+
+def test_core_constants_match_the_planner(cuda):
+    """The planner in ``ops/sort.py`` sizes launches with the constants the
+    built ``csrc/radix_sort.cu`` uses."""
+    assert sort.core_constants() == {
+        "radix_bits": sort.RADIX_BITS, "tile_keys": sort.TILE_KEYS,
+        "one_launch_max_keys": sort.ONE_LAUNCH_MAX_KEYS,
+        "expand_tris": binsort.EXPAND_TRIS, "scan_tiles": binsort.SCAN_TILES}
 
 
 def binned(cuda, h, w, t, seed, n_attrs):
@@ -147,11 +189,27 @@ def test_bin_sort_kernel_matches_plain(cuda, size):
     want = binsort.bin_sort_plain(*spans)
     torch.cuda.synchronize()
     assert binsort.bin_sort.launches == before + 2
-    # tile 0's bin is longer than one B4 block's run of triangles
-    assert int(want[2][0]) >= 3000 > binsort.block_split(1 << 18,
-                                                         size * size // 512)[1]
+    # tile 0's bin is longer than one onesweep tile of the sort
+    assert int(want[2][0]) >= 3000 > sort.TILE_KEYS
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, c) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_tris", [1000, sort.ONE_LAUNCH_MAX_KEYS,
+                                    sort.ONE_LAUNCH_MAX_KEYS + 1])
+def test_bin_sort_kernel_one_tile(cuda, n_tris):
+    """Every pair in one tile (one hot digit bucket in every pass), up to
+    the one-launch limit and past it; deterministic."""
+    ones = torch.ones(n_tris, dtype=torch.int32, device=cuda)
+    spans = (ones * 5, ones, ones * 7, ones, 32, 64, n_tris)
+    before = binsort.bin_sort.launches
+    got, again = binsort.bin_sort(*spans), binsort.bin_sort(*spans)
+    want = binsort.bin_sort_plain(*spans)
+    torch.cuda.synchronize()
+    assert binsort.bin_sort.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(a, b)
+    assert int(got[2][7 * 32 + 5]) == n_tris
 
 
 @pytest.mark.parametrize("n_live", [0, 1])

@@ -4,6 +4,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
         [--size 1024] [--frames 20] [--out DIR] [--sweep 1,2,4,8] [--b5]
+        [--binning]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
@@ -14,7 +15,11 @@ the number of kernel launches, and the kernels ranked by device time.
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
-B5's wrapper on the scene's spans (group 16, sub 8, ample slot_cap).
+B5's wrapper on the scene's spans (group 16, sub 8, ample slot_cap);
+``--binning`` traces ``--frames`` calls of each binning route on the
+scene's lambert_u8 spans (``binsort.bin_sort``, and ``binsort.bin_pairs``
+where the pair key fits in 31 bits): device operations and device ms a
+call.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
@@ -31,17 +36,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import cython3dmodelrenderer_tpu_torch as pt  # noqa: E402
-from cython3dmodelrenderer_tpu_torch.measure import smi  # noqa: E402
-
-
-def device_us(event) -> float:
-    """Device time of a profiler entry (the attribute's name changed
-    across PyTorch versions)."""
-    for attr in ("device_time_total", "cuda_time_total"):
-        value = getattr(event, attr, None)
-        if value:
-            return value
-    return 0.0
+from cython3dmodelrenderer_tpu_torch.measure import (  # noqa: E402
+    device_entries, device_us, smi)
 
 
 def trace(label, fn, reps, per, out):
@@ -57,8 +53,7 @@ def trace(label, fn, reps, per, out):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / (reps * per) * 1e3
     prof.export_chrome_trace(os.path.join(out, f"{label.replace('/', '_')}.json"))
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    kernels = device_entries(prof)
     n = reps * per
     dev = sum(device_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=lambda e: -device_us(e))[:12]
@@ -82,6 +77,7 @@ def main():
     ap.add_argument("--sweep", default="",
                     help="comma-separated view_batch values to trace")
     ap.add_argument("--b5", action="store_true")
+    ap.add_argument("--binning", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
@@ -94,6 +90,17 @@ def main():
     model = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
     print(smi("name,power.limit"))
     tag = f"{args.scene}@{args.size}"
+    if args.binning:
+        from cython3dmodelrenderer_tpu_torch.ops import binsort
+
+        spans = chip_smoke.frame_setup(model, "lambert_u8", args.size)[1]
+        trace(f"bin_sort_{tag}", lambda: binsort.bin_sort(*spans),
+              args.frames, 1, args.out)
+        tx0, ntx, nty = spans[0], spans[4], spans[5]
+        if (tx0.shape[0] - 1).bit_length() + (ntx * nty - 1).bit_length() <= 31:
+            trace(f"bin_pairs_{tag}", lambda: binsort.bin_pairs(*spans),
+                  args.frames, 1, args.out)
+        return
     if args.b5:
         from cython3dmodelrenderer_tpu_torch.ops import binsort_grouped as bg
 
