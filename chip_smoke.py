@@ -18,8 +18,12 @@ Phases (one line each; any failure exits nonzero):
              with duplicates at 0 to 2^18 + 17 keys, both sides of the
              one-launch limit, at 25 bits and 31 (with INT32_MAX), on all
              keys equal, and on each scene's pair keys at their width; B1
-             on the binned 1024² scenes for posts none/u8/lambert_u8
-             (bit-equal);
+             on the binned 1024² scenes for posts none/u8/lambert_u8 and on
+             hand-made rows at 40 x 80 (merge_case: -0.0 and +0.0 winners,
+             exact z ties, z exactly 0 and 1, NaN rows, empty and outside
+             bboxes, ±inf, huge and fractional bounds); every B1 check here
+             and below is bit for bit (-0.0 is not +0.0) and equal to
+             itself on a second call;
 4. main    — Renderer.render at 1024², fov 45, with GuroIllumination and
              NoIllumination, on (a) assets/igor_sphere.obj, (b) a
              16,128-triangle displaced UV sphere built in memory and
@@ -29,7 +33,8 @@ Phases (one line each; any failure exits nonzero):
              one Renderer, filler and model built with no device
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
-             (CUDA events), and each kernel against its plain version;
+             (CUDA events), and each kernel against its plain version (B1
+             also device ms and device operations a call);
              B2 at sphere16k@1024²'s 17,473 pair keys beside torch.sort,
              with device ms and device operations a call (torch.profiler);
 6. large   — the un-grouped (counting-sort) path: B4 against its plain
@@ -38,14 +43,15 @@ Phases (one line each; any failure exits nonzero):
              262,144-triangle displaced torus built in memory) and on 0
              and 1 pairs, and with every pair in one tile (1,000 and
              200,000 triangles); B1 on B4's bins (the B3 route) against
-             the plain raster; Renderer.render on those three frames with
+             the plain raster, and on the one-tile bins of 1,000 and 200,000
+             candidates (one_tile_rows); Renderer.render on those three frames with
              both illuminations, checked as in phase 4, B4 and B1 launched
              and B2 not; rasterize() once; then their ms/frame (20 warm
              frames), B4's whole wrapper at torus262k@1024² and @4096²
              (with torch.sort of the same pairs' tile ids, the sort step
              alone, as a yardstick) and the B3 route against their plain
-             versions, device operations a call of both routes, and both
-             routes' binning at sphere16k@1024²;
+             versions (the B3 route also device ms and operations a call),
+             and both routes' binning at sphere16k@1024²;
 7. sweep   — the multi-view path: an 8-view turntable of sphere16k at
              1024² through Renderer.render_sequence with GuroIllumination
              and NoIllumination at view_batch 1, 2, 4 and 8 (1, 2 and 4 on
@@ -54,8 +60,9 @@ Phases (one line each; any failure exits nonzero):
              view_batch=1 render and to render_frame on the same posed
              arrays, B1 launched N/V times a sweep, one view_batch=8
              sweep equal to the plain path; B1's view-batched launch
-             against its plain version at view_batch 2 (bit-equal); then
-             ms per view per view_batch (CUDA events over the sweep / N),
+             against its plain version at view_batch 2 and on a 2-view
+             merge case; then ms per view per view_batch (CUDA events over
+             the sweep / N), B1's view-batched time with its device ms,
              and B2 at the view_batch=4 batch's pair keys beside
              torch.sort;
 8. b5      — B5 (csrc/binsort_grouped.cu, on no render path) against its
@@ -82,7 +89,8 @@ The next-to-last lines are the nvidia-smi name/power-limit line and one
 JSON object with the kernels' launch counts, errors, times and bounds
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
 operations this run's inputs need over 33.5 T instructions/s; P1's
-``max_abs_err`` is the one-replica difference that its checks hold); the
+``max_abs_err`` is the one-replica difference that its checks hold; the
+three B1/B3 entries also carry ``device_ms`` and ``device_ops``); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -95,10 +103,7 @@ SIZE = 1024
 FOV = 45
 DEVICE = "cuda"
 WARM_FRAMES = 60
-# Mismatch bounds used only if a kernel is not bit-equal to its plain
-# version (tests_tpu/test_tpu_parity.py:49-54, T-Rex row): fraction of
-# pixels whose z differs by > 1e-3 / whose colour differs by > 0.5.
-Z_FRAC_MAX, COLOR_FRAC_MAX = 5e-5, 1.5e-4
+POSTS = ("none", "u8", "lambert_u8")
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
 KERNEL_SOURCES = ("radix_sort", "raster", "binsort_grouped", "vpu_cal",
@@ -108,6 +113,7 @@ SORT_CHECK_SIZES = (0, 1, 2, 1000, 17473, 78000, (1 << 17) - 1, 1 << 17,
                     (1 << 17) + 1, (1 << 18) + 17)
 SORT_CHECK_WIDTHS = ((25, 25), (25, 31), (31, 31))
 ONE_TILE_TRIS = (1000, 200000)
+MERGE_SEEDS = (0, 1)                # B1's hand-made merge cases
 # the un-grouped (counting-sort) path: frames past grouped_limits_ok
 LARGE_FRAMES = (("sphere16k", 2048), ("torus262k", 1024), ("torus262k", 4096))
 LARGE_WARM_FRAMES = 20
@@ -203,6 +209,108 @@ def displaced_torus(nu, nv):
     faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
                             np.stack([a, c, d], -1).reshape(-1, 3)])
     return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def plane_rows(rng, n, cx, cy, radius, n_attrs=6):
+    """``n`` plane rows (binning's layout) of triangle-like regions: three
+    λ half-planes at 120° around (cx, cy) (arrays of n), a sloped z plane
+    that crosses the [0, 1] range, random attribute planes, and a
+    fractional bbox around the region."""
+    import numpy as np
+
+    rows = np.zeros((n, 16 + 3 * n_attrs), np.float32)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    for i in range(3):
+        nx, ny = np.cos(theta + 2 * np.pi * i / 3), np.sin(theta + 2 * np.pi * i / 3)
+        r = radius * rng.uniform(0.3, 1.0, n)
+        rows[:, 3 * i:3 * i + 3] = np.stack([-nx, -ny, r + nx * cx + ny * cy], 1)
+    slope = rng.uniform(-0.02, 0.02, (n, 2))
+    rows[:, 9:12] = np.stack([slope[:, 0], slope[:, 1],
+                              rng.uniform(-0.1, 1.1, n) - slope[:, 0] * cx
+                              - slope[:, 1] * cy], 1)
+    rows[:, 12:16] = np.stack([cx - 2 * radius, cx + 2 * radius,
+                               cy - 2 * radius, cy + 2 * radius], 1)
+    attrs = rng.uniform(-0.5, 0.5, (n, n_attrs, 3))
+    attrs[:, :3, 2] = rng.uniform(0, 255, (n, 3))
+    attrs[:, 3:, 2] = rng.uniform(-1, 1, (n, n_attrs - 3))
+    rows[:, 16:] = attrs.reshape(n, -1)
+    return rows
+
+
+def merge_case(device, n_views=1, seed=0):
+    """Hand-made plane rows and bins for B1's merge rule at a 40 x 80 frame
+    (partial edge tiles both ways; 80 is not a multiple of 32): random
+    regions, then rows with z = -0.0 and +0.0 over the same pixels (both
+    orders), exact z ties (a row's z plane copied into overlapping rows),
+    z exactly 0 and 1, NaN in every column group, empty bboxes, bboxes past
+    the frame, ±inf, huge and fractional bounds. Each (view, tile) bin holds
+    the special rows and a random subset of the rest, ascending. Returns
+    ``raster_tiles``' keyword arguments."""
+    import numpy as np
+    import torch
+
+    height, width = 40, 80
+    ntx, nty = -(-width // 32), -(-height // 16)
+    rng = np.random.default_rng(seed)
+    rows = plane_rows(rng, 48, rng.uniform(-10, 90, 48),
+                      rng.uniform(-5, 45, 48), rng.uniform(3, 30, 48))
+    # rows 48-53 overlap in a chain: -0.0 (48) then +0.0 (50) then -0.0
+    # (53) over shared pixels; 54-56 tie; 57-61 never cover a pixel
+    wide = plane_rows(
+        rng, 14, np.float32([25, 8, 35, 70, 60, 45, 55, 58, 52] + [40] * 5),
+        np.float32([20, 34, 20, 8, 30, 20, 25, 22, 28] + [20] * 5),
+        np.float32([12, 8, 12, 10, 8, 12, 18, 18, 18] + [60] * 5))
+    wide[:, 12:16] = [-1e30, 1e30, -np.inf, np.inf]
+    wide[0, 9:12] = wide[1, 9:12] = wide[5, 9:12] = -0.0   # z == -0.0
+    wide[2, 9:12] = wide[4, 9:12] = 0.0                      # z == +0.0
+    wide[3, 9:12] = [0.0, 0.0, 1.0]                          # z == 1 exactly
+    wide[6, 9:12] = wide[7, 9:12] = wide[8, 9:12]            # exact ties
+    wide[6, 12:16] = [3.5, 70.25, 2.75, 39.5]                # fractional
+    wide[9, :] = np.nan                                      # NaN row
+    wide[10, 0:9] = np.nan                                   # NaN λ
+    wide[11, 9:12] = np.nan                                  # NaN z
+    wide[12, 12:16] = [np.nan, 50.0, 0.0, 40.0]              # NaN bbox
+    wide[13, 12:16] = [np.inf, np.inf, -np.inf, np.inf]      # no x at all
+    rows[40:48, 12:16] = [[20, 20, 0, 40], [30, 10, 0, 40], [0, 80, 9, 9],
+                          [100, 200, 0, 40], [0, 80, -30, -1],
+                          [-1e30, -1e29, 0, 40], [0, 80, 1e30, np.inf],
+                          [np.inf, -np.inf, 0, 40]]          # empty or outside
+    rows = np.concatenate([rows, wide])
+    special = np.arange(40, rows.shape[0])
+    bins = []
+    for _ in range(ntx * nty * n_views):
+        pick = rng.random(40) < 0.5
+        bins.append(np.sort(np.concatenate([np.flatnonzero(pick), special])))
+    counts = np.array([len(b) for b in bins], np.int32)
+    starts = np.cumsum(counts) - counts
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(device)
+
+    return dict(rows=dev(rows, np.float32),
+                pair_tri=dev(np.concatenate(bins), np.int32),
+                tile_starts=dev(starts, np.int32),
+                tile_counts=dev(counts, np.int32), ntx=ntx, nty=nty,
+                height=height, width=width, n_attrs=6, z_init=1e6,
+                n_views=n_views)
+
+
+def one_tile_rows(n_tris, ntx, nty, device, seed=0):
+    """Plane rows of ``n_tris`` triangles around tile (ntx // 2, nty // 3)
+    of an ntx x nty grid (``one_tile_spans``' tile), a quarter with flat
+    z planes on 64 levels: exact ties among thousands of candidates."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x0, y0 = (ntx // 2) * 32, (nty // 3) * 16
+    rows = plane_rows(rng, n_tris, rng.uniform(x0 - 8, x0 + 40, n_tris),
+                      rng.uniform(y0 - 4, y0 + 20, n_tris),
+                      rng.uniform(2, 24, n_tris))
+    flat = rng.random(n_tris) < 0.25
+    rows[flat, 9:11] = 0.0
+    rows[flat, 11] = rng.integers(0, 64, int(flat.sum())) / 63.0
+    return torch.from_numpy(rows).to(device)
 
 
 def posed(model, push_back):
@@ -344,8 +452,8 @@ def nbytes(*tensors):
 def raster_bound(kw):
     """B1 / B3: rows, pairs and bin tables read once, the u8 image written
     once; f32 operations the bins need (``raster.walk_instructions``: 28
-    per (pair, pixel) in the pair's ceil bbox, 4 per other pixel of its
-    tile; the winner's epilogue is left out, so this is a floor)."""
+    per (pair, pixel) of the pair's ceil bbox in its tile and the image;
+    the winner's epilogue is left out, so this is a floor)."""
     from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
     from cython3dmodelrenderer_tpu_torch.ops import raster
 
@@ -412,22 +520,66 @@ def check_keys(gen, n, width):
     return keys.to(torch.int32)
 
 
-def compare_gbuffers(got, want):
-    """(bit_equal, max_abs_err, z_frac, color_frac) of two G-buffer triples."""
+def same_bits(a, b):
+    """Equal bit for bit (a float -0.0 differs from +0.0, NaN equals the
+    same NaN)."""
     import torch
 
-    eq = all(torch.equal(a, b) for a, b in zip(got, want))
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    zf = float(((got[1] - want[1]).abs() > 1e-3).float().mean())
-    cf = float(((got[0] - want[0]).abs().amax(-1) > 0.5).float().mean())
-    return eq, err, zf, cf
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def raster_opts(post, light):
+    return dict(light=light if post == "lambert_u8" else None,
+                gbuffer=post == "none", image=post != "none")
+
+
+def check_raster(tag, kw, light, posts=POSTS):
+    """B1 (``raster_tiles``) against its plain version on ``kw`` for each
+    post: bit-equal in every output and equal to itself on a second call.
+    Returns the largest |kernel - plain| (0.0 when all are equal)."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
+                                                            raster_tiles_plain)
+
+    err = 0.0
+    for post in posts:
+        opts = raster_opts(post, light)
+        runs = [raster_tiles(**kw, **opts), raster_tiles(**kw, **opts),
+                raster_tiles_plain(**kw, **opts)]
+        torch.cuda.synchronize()
+        got, again, want = ([*g] if post == "none" else [i] for g, i in runs)
+        for a, b, c in zip(got, again, want):
+            err = max(err, max_abs_err(a.float(), c.float()))
+            require(same_bits(a, c), f"B1 {tag} {post}: differs from the "
+                    "plain version")
+            require(same_bits(a, b), f"B1 {tag} {post}: two runs differ")
+        say("kernels", f"B1 {tag} {post}: bit-equal to plain, equal to itself "
+            f"on a second call ({int(kw['pair_tri'].numel())} pairs)")
+    return err
+
+
+def time_raster(kw, opts, n, n_plain):
+    """B1 on ``kw``: CUDA-event ms a call of the wrapper and of the plain
+    version, and the kernel's device ms and device operations a call
+    (torch.profiler)."""
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
+                                                            raster_tiles_plain)
+
+    dev_ms, ops = profile_calls(lambda: raster_tiles(**kw, **opts), 20)
+    return {"ms": cuda_time_ms(lambda: raster_tiles(**kw, **opts), n),
+            "plain_ms": cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts),
+                                     n_plain),
+            "device_ms": dev_ms, "device_ops": ops}
 
 
 def phase_kernels(scenes, light):
     import torch
 
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -456,7 +608,7 @@ def phase_kernels(scenes, light):
     raster_err = 0.0
     inputs = {}
     for name, model in scenes.items():
-        for post in ("none", "u8", "lambert_u8"):
+        for post in POSTS:
             kw, (keys, bits) = frame_inputs(model, post)
             inputs.setdefault(name, {})[post] = (kw, (keys, bits))
             if post == "lambert_u8":
@@ -466,28 +618,11 @@ def phase_kernels(scenes, light):
                         f"keys at {bits} bits")
                 say("kernels", f"B2 sort {name}: {keys.numel()} pair keys at "
                     f"{bits} bits == torch.sort")
-            lt = light if post == "lambert_u8" else None
-            g_k, i_k = raster_tiles(**kw, light=lt, gbuffer=post == "none",
-                                    image=post != "none")
-            g_p, i_p = raster_tiles_plain(**kw, light=lt,
-                                          gbuffer=post == "none",
-                                          image=post != "none")
-            torch.cuda.synchronize()
-            if post == "none":
-                eq, err, zf, cf = compare_gbuffers(g_k, g_p)
-                raster_err = max(raster_err, err)
-                require(eq or (zf <= Z_FRAC_MAX and cf <= COLOR_FRAC_MAX),
-                        f"B1 {name}/none: z frac {zf}, colour frac {cf}")
-                detail = "bit-equal" if eq else f"z frac {zf} colour frac {cf}"
-            else:
-                diff = (i_k.int() - i_p.int()).abs()
-                frac = float((diff.amax(-1) > 0).float().mean())
-                raster_err = max(raster_err, float(diff.max()))
-                require(frac <= COLOR_FRAC_MAX,
-                        f"B1 {name}/{post}: image mismatch fraction {frac}")
-                detail = "bit-equal" if frac == 0 else f"mismatch frac {frac}"
-            say("kernels", f"B1 raster {name} {post}: {detail} "
-                f"({int(kw['pair_tri'].numel())} pairs)")
+            raster_err = max(raster_err, check_raster(f"{name}@{SIZE}", kw,
+                                                      light, (post,)))
+    for seed in MERGE_SEEDS:         # ties, -0.0, NaN rows, an 80-wide frame
+        raster_err = max(raster_err, check_raster(
+            f"merge case {seed} (40 x 80)", merge_case("cuda", 1, seed), light))
     return sort_err, raster_err, inputs
 
 
@@ -501,12 +636,12 @@ def synthetic_spans(n_tris, ntx, nty, n_live):
     return (live * (ntx // 2), live, live * (nty // 3), live, ntx, nty, n_live)
 
 
-def one_tile_spans(n_tris, ntx, nty):
+def one_tile_spans(n_tris, ntx, nty, device="cuda"):
     """Spans of ``n_tris`` triangles that all cover the one tile
     (ntx // 2, nty // 3): one hot digit bucket in every radix pass."""
     import torch
 
-    ones = torch.ones(n_tris, dtype=torch.int32, device="cuda")
+    ones = torch.ones(n_tris, dtype=torch.int32, device=device)
     return (ones * (ntx // 2), ones, ones * (nty // 3), ones, ntx, nty, n_tris)
 
 
@@ -517,8 +652,6 @@ def phase_kernels_large(scenes, light):
 
     from cython3dmodelrenderer_tpu_torch.ops.binsort import (bin_sort,
                                                              bin_sort_plain)
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
 
     cases = [(f"{name}@{size}", frame_setup(scenes[name], "lambert_u8", size)[1])
              for name, size in LARGE_FRAMES]
@@ -542,23 +675,20 @@ def phase_kernels_large(scenes, light):
     inputs = {}
     b3_err = 0.0
     for name, size in LARGE_FRAMES[:2]:
-        for post in ("none", "u8", "lambert_u8"):
+        for post in POSTS:
             kw, spans = frame_setup(scenes[name], post, size)
             kw = with_bins(kw, bin_sort(*spans))
             inputs[(name, size, post)] = kw
-            opts = dict(light=light if post == "lambert_u8" else None,
-                        gbuffer=post == "none", image=post != "none")
-            g_k, i_k = raster_tiles(**kw, **opts)
-            g_p, i_p = raster_tiles_plain(**kw, **opts)
-            torch.cuda.synchronize()
-            pairs = list(zip(g_k, g_p)) if post == "none" else [(i_k, i_p)]
-            b3_err = max([b3_err] + [float((a.float() - b.float()).abs().max())
-                                     for a, b in pairs])
-            require(all(torch.equal(a, b) for a, b in pairs),
-                    f"B3 route {name}@{size} {post}: B1 on B4 bins differs "
-                    "from the plain raster")
-            say("kernels", f"B3 route (B1 on B4 bins) {name}@{size} {post}: "
-                f"bit-equal ({spans[-1]} pairs)")
+            b3_err = max(b3_err, check_raster(f"on B4 bins (B3 route) "
+                                              f"{name}@{size}", kw, light,
+                                              (post,)))
+    for n in ONE_TILE_TRIS:          # one block walks the whole bin
+        spans = one_tile_spans(n, 32, 64)
+        kw = with_bins(dict(rows=one_tile_rows(n, 32, 64, "cuda"), ntx=32,
+                            nty=64, height=1024, width=1024, n_attrs=6,
+                            z_init=1e6), bin_sort(*spans))
+        b3_err = max(b3_err, check_raster(f"on B4 bins, one tile x {n}", kw,
+                                          light, ("none", "lambert_u8")))
     return binsort_err, b3_err, inputs
 
 
@@ -749,10 +879,6 @@ def time_frames(tag, renderer, model, n):
 
 
 def phase_timing(scenes, results, inputs, light):
-    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
-
     frame_ms = {}
     for (name, iname), (renderer, *_rest) in results.items():
         frame_ms[f"{name}/{iname}"] = time_frames(f"{name} {iname}", renderer,
@@ -761,18 +887,15 @@ def phase_timing(scenes, results, inputs, light):
     kw, (keys, bits) = inputs["sphere16k"]["lambert_u8"]
     sort_ms = time_sort("sphere16k@1024 pair keys", keys, bits)
     frame_ms["sort_sphere16k@1024"] = sort_ms
-    kt = {
-        "sort": (sort_ms["b2"]["ms"], sort_ms["torch_sort"]["ms"]),
-        "raster": (cuda_time_ms(lambda: raster_tiles(**kw, light=light,
-                                                  gbuffer=False, image=True),
-                             100),
-                   cuda_time_ms(lambda: raster_tiles_plain(**kw, light=light,
-                                                        gbuffer=False,
-                                                        image=True), 20)),
-    }
+    b1 = time_raster(kw, raster_opts("lambert_u8", light), 100, 20)
+    frame_ms["raster_sphere16k@1024"] = b1
+    kt = {"sort": (sort_ms["b2"]["ms"], sort_ms["torch_sort"]["ms"]),
+          "raster": (b1["ms"], b1["plain_ms"])}
     for k, (ms, plain) in kt.items():
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(sphere16k lambert_u8 frame: {keys.numel()} pair keys)")
+    say("timing", f"B1 sphere16k@{SIZE}: device {b1['device_ms']} ms in "
+        f"{b1['device_ops']} device operations a call")
     bounds = {"sort": sort_bound(keys, bits), "raster": raster_bound(kw)}
     return frame_ms, kt, bounds
 
@@ -807,8 +930,6 @@ def phase_timing_large(scenes, results, inputs, light):
     from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
                                                          profile_calls)
     from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_pairs, bin_sort
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     frame_ms = {}
@@ -822,18 +943,18 @@ def phase_timing_large(scenes, results, inputs, light):
     name, size = LARGE_FRAMES[1]                       # torus262k@1024
     spans = frame_setup(scenes[name], "lambert_u8", size)[1]
     kw = inputs[(name, size, "lambert_u8")]
-    opts = dict(light=light, gbuffer=False, image=True)
     bounds = {"binsort": binning_bound(spans, bin_sort(*spans), spans[-1]),
               "b3_route": raster_bound(kw)}
     b4 = frame_ms[f"bin_sort_{name}@{size}"]
-    kt = {
-        "binsort": (b4["ms"], b4["plain_ms"]),
-        "b3_route": (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 50),
-                     cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts), 10)),
-    }
+    b3 = time_raster(kw, raster_opts("lambert_u8", light), 50, 10)
+    frame_ms[f"raster_b3_route_{name}@{size}"] = b3
+    kt = {"binsort": (b4["ms"], b4["plain_ms"]),
+          "b3_route": (b3["ms"], b3["plain_ms"])}
     for k, (ms, plain) in kt.items():
         say("timing", f"{k}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"({name}@{size} lambert_u8: {spans[-1]} pairs)")
+    say("timing", f"B3 route {name}@{size}: device {b3['device_ms']} ms in "
+        f"{b3['device_ops']} device operations a call")
     small = frame_setup(scenes["sphere16k"], "lambert_u8", SIZE)[1]
     routes = {"counting_sort": lambda: bin_sort(*small),
               "sort_searchsorted": lambda: bin_pairs(*small, sort=sort_i32)}
@@ -1027,27 +1148,13 @@ def sweep_batch_inputs(model, colors, post, vb=2):
 
 def phase_kernels_sweep(model, colors, light):
     """B1's view-batched launch against its plain version (view_batch 2)."""
-    import torch
-
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
-
     err = 0.0
-    for post in ("none", "u8", "lambert_u8"):
-        kw = sweep_batch_inputs(model, colors, post)
-        opts = dict(light=light if post == "lambert_u8" else None,
-                    gbuffer=post == "none", image=post != "none")
-        g_k, i_k = raster_tiles(**kw, **opts)
-        g_p, i_p = raster_tiles_plain(**kw, **opts)
-        torch.cuda.synchronize()
-        pairs = list(zip(g_k, g_p)) if post == "none" else [(i_k, i_p)]
-        err = max([err] + [float((a.float() - b.float()).abs().max())
-                           for a, b in pairs])
-        require(all(torch.equal(a, b) for a, b in pairs),
-                f"B1 view-batched {post}: differs from the plain version")
-        say("kernels", f"B1 view-batched (2 views) sphere16k {post}: bit-equal "
-            f"({int(kw['pair_tri'].numel())} pairs)")
-    return err
+    for post in POSTS:
+        err = max(err, check_raster("view-batched (2 views) sphere16k",
+                                    sweep_batch_inputs(model, colors, post),
+                                    light, (post,)))
+    return max(err, check_raster("view-batched merge case (2 views, 40 x 80)",
+                                 merge_case("cuda", 2, 2), light))
 
 
 def phase_timing_sweep(renderers, model, colors, light, frame_ms):
@@ -1055,8 +1162,6 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
     the single-frame ms/frame, and B1 view-batched against its plain
     version at view_batch 2."""
     from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            raster_tiles_plain)
 
     out = {}
     for iname, renderer in renderers.items():
@@ -1079,13 +1184,13 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
     keys, bits = pair_keys(sweep_batch_planes(model, colors, "lambert_u8", 4)[1])
     out["sort_vb4"] = time_sort("view_batch=4 batch pair keys", keys, bits)
     kw = sweep_batch_inputs(model, colors, "lambert_u8")
-    opts = dict(light=light, gbuffer=False, image=True)
-    kt = (cuda_time_ms(lambda: raster_tiles(**kw, **opts), 100),
-          cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts), 10))
+    b1 = time_raster(kw, raster_opts("lambert_u8", light), 100, 10)
+    out["raster_vb2"] = b1
     say("timing", f"B1 view-batched (2 views, lambert_u8, "
-        f"{int(kw['pair_tri'].numel())} pairs): kernel {kt[0]:.4f} ms, plain "
-        f"{kt[1]:.4f} ms")
-    return out, kt, raster_bound(kw)
+        f"{int(kw['pair_tri'].numel())} pairs): kernel {b1['ms']:.4f} ms, "
+        f"plain {b1['plain_ms']:.4f} ms; device {b1['device_ms']} ms in "
+        f"{b1['device_ops']} device operations a call")
+    return out, b1, raster_bound(kw)
 
 
 def phase_b5(scenes):
@@ -1296,17 +1401,23 @@ def main():
     frame_ms.update(large_ms)
     frame_ms["sweep_ms_per_view"] = sweep_ms
 
-    def entry(name, source, replaces, n, err, times, bound, library=None):
-        return {"name": name, "route": "cuda",
-                "source": f"cython3dmodelrenderer_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": times[0], "plain_ms": times[1], "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": library}
+    def entry(name, source, replaces, n, err, times, bound, library=None,
+              device=None):
+        out = {"name": name, "route": "cuda",
+               "source": f"cython3dmodelrenderer_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": n, "max_abs_err": err,
+               "ms": times[0], "plain_ms": times[1], "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": library}
+        if device is not None:          # B1's kernel time under the profiler
+            out.update(device_ms=device["device_ms"],
+                       device_ops=device["device_ops"])
+        return out
 
     pkg = "cython3dmodelrenderer_tpu/ops/"
     kernels = [
         entry("raster_tiles (B1)", "raster.cu", pkg + "raster_pallas.py:293",
-              launches["raster"], raster_err, kt["raster"], bounds["raster"]),
+              launches["raster"], raster_err, kt["raster"], bounds["raster"],
+              device=frame_ms["raster_sphere16k@1024"]),
         # B2's plain version is torch.sort itself: its time is the library's
         entry("sort_i32 (B2)", "radix_sort.cu", pkg + "sort_pallas.py:32",
               launches["sort"], sort_err, kt["sort"], bounds["sort"],
@@ -1316,10 +1427,12 @@ def main():
               large_bounds["binsort"]),
         entry("raster_tiles on bin_sort bins (B3)", "raster.cu",
               pkg + "raster_pallas.py:142", large_launches["raster"], b3_err,
-              large_kt["b3_route"], large_bounds["b3_route"]),
+              large_kt["b3_route"], large_bounds["b3_route"],
+              device=large_ms["raster_b3_route_torus262k@1024"]),
         entry("raster_tiles view-batched (B1/B3 tiles_per_view)", "raster.cu",
               pkg + "raster_pallas.py:293", sweep_launches["raster_batched"],
-              sweep_err, sweep_kt, sweep_bound),
+              sweep_err, (sweep_kt["ms"], sweep_kt["plain_ms"]), sweep_bound,
+              device=sweep_kt),
         entry("bin_sort_grouped (B5)", "binsort_grouped.cu",
               pkg + "binsort_pallas.py:106", b5_launches, b5_err, b5_kt,
               b5_bound),

@@ -41,24 +41,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path.
-
-    The compiler's report (``-Xptxas=-v``: registers, shared memory,
-    spills) is kept beside the library as ``.log``.
-    """
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_source(source: Path, out: Path) -> str:
+    """nvcc ``source`` into the library ``out`` with ``NVCC_FLAGS``; return
+    the compiler's report (``-Xptxas=-v``: registers, shared memory,
+    spills), which is also kept beside the library as ``.log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+        raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
     out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
+    return res.stdout + res.stderr
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    out = library_path(name)
+    if not out.exists():
+        compile_source(CSRC / f"{name}.cu", out)
     return out
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library with its ``kernel_error_string``."""
+    lib = ctypes.CDLL(str(path))
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -66,10 +77,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            lib = _LIBS[name] = open_library(build(name))
         return lib
 
 

@@ -3,8 +3,11 @@
 ``raster_tiles`` replaces ``cython3dmodelrenderer_tpu/ops/raster_pallas.py::
 _raster_tiles_grouped`` (TPU kernel ``_make_kernel_grouped``,
 ``raster_pallas.py:293``). On a CUDA tensor it launches ``csrc/raster.cu``
-(one block per 16x32 tile, one thread per pixel; see the source for its
-design and what bounds it); on a CPU tensor it runs ``raster_tiles_plain``.
+(one block per 16x32 tile; each candidate is evaluated only at the pixels
+of its ceil bbox's window in the tile, and a pixel's winner is the minimum
+of one (z bits, triangle) key; see the source for its design and what
+bounds it); on a CPU tensor it runs ``raster_tiles_plain``, which takes
+the minimum of the same key.
 Both write straight into (H, W, C) image layout, so the JAX package's
 group-packed output, ``assemble_u8_image``, ``_pos_of_tiles`` and the
 grouped unpacks have no counterpart.
@@ -55,11 +58,12 @@ PLAIN_PIXELS = 1 << 20  # pixels per pass of the plain raster's winner stage
 #: ``group > 1`` frame inside ``grouped_limits_ok`` takes the sort route
 GROUP = 16
 #: f32 instructions the walk of csrc/raster.cu needs per (pair, pixel)
-#: inside the pair's ceil bbox: 4 planes of 2 multiplies + 2 adds, 10
-#: compares (3 λ, 4 bbox, 2 z range, the depth test), 2 selects
+#: of the pair's window (its ceil bbox in the tile and the image): 4 planes
+#: of 2 multiplies + 2 adds, 10 compares (3 λ, 4 bbox, 2 z range, the depth
+#: test), 2 selects; the walk visits no other pixel
 INSTR_PER_BBOX_PIXEL = 28
-#: ... and per (pair, pixel) outside it, where the 4 bbox compares decide
-INSTR_PER_OTHER_PIXEL = 4
+#: the key of "no winner" in the plain version's per-pixel minimum
+NO_WINNER = torch.iinfo(torch.int64).max
 
 GBuffers = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -132,37 +136,41 @@ def _binned_pairs(tile_starts: torch.Tensor, tile_counts: torch.Tensor):
     return pair_tile, pos, n
 
 
+def bbox_window(lo: torch.Tensor, hi: torch.Tensor, t0: torch.Tensor,
+                t1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``window()`` of csrc/raster.cu: (first, count) of the integer
+    positions p in [t0, t1) that pass ``p >= lo`` and ``p < hi`` for float32
+    bounds. The ceil bounds are clamped to [t0, t1] as floats before any
+    conversion; a NaN or empty pair (``not lo < hi``) holds none."""
+    f0, f1 = t0.to(torch.float32), t1.to(torch.float32)
+    first = torch.fmin(torch.fmax(torch.ceil(lo), f0), f1).to(torch.int64)
+    end = torch.fmin(torch.fmax(torch.ceil(hi), f0), f1).to(torch.int64)
+    count = torch.where(lo < hi, (end - first).clamp(min=0),
+                        torch.zeros_like(first))
+    return first, count
+
+
 def walk_instructions(rows: torch.Tensor, pair_tri: torch.Tensor,
                       tile_starts: torch.Tensor, tile_counts: torch.Tensor,
                       ntx: int, nty: int, height: int, width: int,
                       n_views: int = 1) -> int:
-    """The f32 instructions these bins need for the walk: for each binned
-    pair, ``INSTR_PER_BBOX_PIXEL`` at the in-image pixels of its tile that
-    lie in its triangle's ceil bbox and ``INSTR_PER_OTHER_PIXEL`` at the
-    tile's other in-image pixels. The winners' epilogue is left out."""
+    """The f32 instructions these bins need for the walk:
+    ``INSTR_PER_BBOX_PIXEL`` for each binned pair at each pixel of its
+    window, the in-image pixels of its tile inside its triangle's ceil bbox
+    (``bbox_window``). The winners' epilogue is left out."""
     tpv = ntx * nty
     pair_tile, pos, n = _binned_pairs(tile_starts, tile_counts)
     if n == 0:
         return 0
     tile = pair_tile % tpv
-    bbox = torch.ceil(rows[pair_tri[pos].to(torch.int64),
-                           binning.IDX_BBOX:binning.IDX_BBOX + 4].double())
-
-    def span(t0, size, limit, lo, hi):
-        """(the tile's pixels in the image, of them in [lo, hi)) along one
-        axis; a NaN bbox holds none."""
-        t0 = t0.double()
-        end = torch.clamp(t0 + size, max=limit)
-        inside = (torch.minimum(end, hi) - torch.maximum(t0, lo)).clamp(min=0)
-        return end - t0, torch.nan_to_num(inside, nan=0.0)
-
-    wx, ix = span((tile % ntx) * TILE_W, TILE_W, width, bbox[:, 0], bbox[:, 1])
-    wy, iy = span((tile // ntx) * TILE_H, TILE_H, height, bbox[:, 2],
-                  bbox[:, 3])
-    in_box = ix * iy
-    ops = (INSTR_PER_BBOX_PIXEL * in_box
-           + INSTR_PER_OTHER_PIXEL * (wx * wy - in_box))
-    return int(ops.sum())
+    bbox = rows[pair_tri[pos].to(torch.int64),
+                binning.IDX_BBOX:binning.IDX_BBOX + 4]
+    x0, y0 = (tile % ntx) * TILE_W, (tile // ntx) * TILE_H
+    _fx, wx = bbox_window(bbox[:, 0], bbox[:, 1], x0,
+                          torch.clamp(x0 + TILE_W, max=width))
+    _fy, wy = bbox_window(bbox[:, 2], bbox[:, 3], y0,
+                          torch.clamp(y0 + TILE_H, max=height))
+    return INSTR_PER_BBOX_PIXEL * int((wx * wy).sum())
 
 
 def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
@@ -174,10 +182,12 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
                        ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor]]:
     """The plain version of ``raster_tiles``, ``PLAIN_CHUNK`` pairs a pass.
 
-    Every pair is evaluated over its tile's 512 pixels; the per-pixel
-    ``(z, rank)`` lexicographic minimum (rank = position in the tile's
-    ascending bin) comes from two ``scatter_reduce("amin")`` passes, then
-    the winner's planes are evaluated at each pixel.
+    Every pair is evaluated over its tile's 512 pixels. A pixel's winner is
+    the minimum of the kernel's int64 key ``bits(z + 0.0) << 32 | triangle``
+    over its covered fragments (one ``scatter_reduce("amin")``): a covered
+    z lies in [0, 1], so this is the (z, triangle) lexicographic minimum
+    that a strict-< walk of the ascending bin keeps. Then the winner's
+    planes are evaluated at each pixel.
     """
     tpv = ntx * nty
     _check_inputs(rows, pair_tri, tile_starts, tile_counts, tpv * n_views,
@@ -188,30 +198,23 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
     pair_tile, pos, n = _binned_pairs(tile_starts, tile_counts)
     local = torch.arange(TILE_H * TILE_W, device=dev)
 
-    def fragments(p0: int, p1: int):
-        view, tile = pair_tile[p0:p1] // tpv, pair_tile[p0:p1] % tpv
-        g = rows[pair_tri[pos[p0:p1]].to(torch.int64)]
-        xi = ((tile % ntx) * TILE_W)[:, None] + (local % TILE_W)[None, :]
-        yi = ((tile // ntx) * TILE_H)[:, None] + (local // TILE_W)[None, :]
-        z, good = _good(g, xi.to(torch.float32), yi.to(torch.float32))
-        inside = (xi < width) & (yi < height)
-        good = good & inside
-        # n_pix: the dump slot of pixels outside their view's image
-        pix = torch.where(inside, view[:, None] * hw + yi * width + xi, n_pix)
-        return pix.reshape(-1), z, good
-
-    inf = float("inf")
-    zmin = torch.full((n_pix + 1,), inf, dtype=torch.float32, device=dev)
-    for p0 in range(0, n, PLAIN_CHUNK):
-        pix, z, good = fragments(p0, min(n, p0 + PLAIN_CHUNK))
-        zmin.scatter_reduce_(0, pix, torch.where(good, z, inf).reshape(-1), "amin")
-    rmin = torch.full((n_pix + 1,), n, dtype=torch.int64, device=dev)
+    key_min = torch.full((n_pix + 1,), NO_WINNER, dtype=torch.int64,
+                         device=dev)
     for p0 in range(0, n, PLAIN_CHUNK):
         p1 = min(n, p0 + PLAIN_CHUNK)
-        pix, z, good = fragments(p0, p1)
-        cand = good.reshape(-1) & (z.reshape(-1) == zmin[pix])
-        rank = pos[p0:p1, None].expand(-1, TILE_H * TILE_W).reshape(-1)
-        rmin.scatter_reduce_(0, pix, torch.where(cand, rank, n), "amin")
+        view, tile = pair_tile[p0:p1] // tpv, pair_tile[p0:p1] % tpv
+        tri = pair_tri[pos[p0:p1]].to(torch.int64)
+        xi = ((tile % ntx) * TILE_W)[:, None] + (local % TILE_W)[None, :]
+        yi = ((tile // ntx) * TILE_H)[:, None] + (local // TILE_W)[None, :]
+        z, good = _good(rows[tri], xi.to(torch.float32), yi.to(torch.float32))
+        inside = (xi < width) & (yi < height)
+        # n_pix: the dump slot of pixels outside their view's image
+        pix = torch.where(inside, view[:, None] * hw + yi * width + xi, n_pix)
+        # + 0.0 folds -0.0 into +0.0; a covered z's bits are >= 0
+        key = ((z + 0.0).view(torch.int32).to(torch.int64) << 32) | tri[:, None]
+        key_min.scatter_reduce_(0, pix.reshape(-1),
+                                torch.where(good & inside, key,
+                                            NO_WINNER).reshape(-1), "amin")
 
     # the winners' planes at every pixel, PLAIN_PIXELS pixels a pass (the
     # gathered winner rows are 136 B a pixel)
@@ -221,8 +224,8 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     for q0 in range(0, n_pix if n else 0, PLAIN_PIXELS):
         q1 = min(n_pix, q0 + PLAIN_PIXELS)
-        has = rmin[q0:q1] < n
-        wrows = rows[pair_tri[rmin[q0:q1].clamp(max=n - 1)].to(torch.int64)]
+        has = key_min[q0:q1] != NO_WINNER
+        wrows = rows[torch.where(has, key_min[q0:q1] & 0xFFFFFFFF, 0)]
         flat = torch.arange(q0, q1, device=dev) % hw      # view-relative
         px = (flat % width).to(torch.float32)
         py = (flat // width).to(torch.float32)
@@ -248,7 +251,11 @@ def raster_tiles_plain(rows: torch.Tensor, pair_tri: torch.Tensor,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("raster")
+    return bind(cuda_build.load("raster"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``raster_launch``'s C signature on a loaded library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.raster_launch.argtypes = [p, i, p, p, p, i, i, i, i, i, i, f, i, f, f,
                                   f, p, p, p, p, i, p]

@@ -96,7 +96,10 @@ class Renderer:
         cls = self.triangle_iterator_type
         if cls is None or cls.__name__ == "SimpleIterator":
             return None                      # identity order: no gather
-        return cls.order_indices(model)
+        try:
+            return cls.order_indices(model)
+        except (AttributeError, NotImplementedError):
+            return None                      # no order of its own: model order
 
     def _render_batched(self, model: Model,
                         colors_override: Optional[torch.Tensor]) -> None:

@@ -5,8 +5,10 @@ plain PyTorch versions, and the sweep path on both backends.
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
-every comparison is exact, except P1's summed primitives, which sum up to
-2 x 65,536 floats in another order than torch (rtol 2e-6). Run them there with ``python -m pytest
+every comparison is exact (B1's hand-made merge cases and one-tile bins
+bit for bit, -0.0 apart from +0.0, and equal on a second call), except
+P1's summed primitives, which sum up to 2 x 65,536 floats in another
+order than torch (rtol 2e-6). Run them there with ``python -m pytest
 --noconftest tests/test_torch_kernels_cuda.py`` (the repository's
 conftest imports jax).
 """
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
                                                  binsort_grouped, raster, sort)
@@ -122,6 +125,41 @@ def test_raster_kernel_matches_plain(cuda, h, w, t, post):
                                           b.cpu().numpy().view(np.int32))
     else:
         assert torch.equal(i_k, i_p)
+
+
+def assert_raster_exact(kw, post):
+    """B1 bit-equal to its plain version (-0.0 is not +0.0) and to itself
+    on a second call (``chip_smoke.check_raster`` raises otherwise), in
+    two launches."""
+    before = raster.raster_tiles.launches
+    assert chip_smoke.check_raster("", kw, light_direction(), (post,)) == 0.0
+    assert raster.raster_tiles.launches == before + 2
+
+
+@pytest.mark.parametrize("n_views,seed", [(1, 0), (1, 1), (2, 2)])
+@pytest.mark.parametrize("post", ["none", "u8", "lambert_u8"])
+def test_raster_kernel_merge_cases(cuda, n_views, seed, post):
+    """Hand-made rows (``chip_smoke.merge_case``): -0.0 and +0.0 winners,
+    exact z ties, z exactly 0 and 1, NaN rows, empty and outside bboxes,
+    ±inf, huge and fractional bounds, an 80-pixel-wide frame."""
+    kw = chip_smoke.merge_case(cuda, n_views, seed)
+    assert_raster_exact(kw, post)
+    if post == "none":                      # the cases reach the output
+        z = raster.raster_tiles(**kw)[0][1]
+        assert bool(((z == 0) & torch.signbit(z)).any())
+        assert bool(((z == 0) & ~torch.signbit(z)).any())
+
+
+@pytest.mark.parametrize("n_tris", [1000, 200000])
+@pytest.mark.parametrize("post", ["none", "lambert_u8"])
+def test_raster_kernel_one_tile(cuda, n_tris, post):
+    """One tile holding every candidate (B4's bins), walked by one block."""
+    bins = binsort.bin_sort(*chip_smoke.one_tile_spans(n_tris, 32, 64, cuda))
+    kw = dict(rows=chip_smoke.one_tile_rows(n_tris, 32, 64, cuda),
+              pair_tri=bins[0], tile_starts=bins[1], tile_counts=bins[2],
+              ntx=32, nty=64, height=1024, width=1024, n_attrs=6, z_init=1e6)
+    assert int(bins[2].max()) == n_tris
+    assert_raster_exact(kw, post)
 
 
 def test_frame_backends_agree(cuda):

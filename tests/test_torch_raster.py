@@ -217,9 +217,10 @@ def test_u8_cast_truncates_and_wraps():
 
 
 def test_walk_instructions_counts_bbox_pixels():
-    """``walk_instructions`` against a pixel-by-pixel count: two views of a
-    3 x 2-tile frame with partial edge tiles, random bins, random bboxes
-    (some NaN, some past the frame)."""
+    """``walk_instructions`` against a pixel-by-pixel count of the pixels
+    the kernel's walk visits (each pair's in-image tile pixels inside its
+    bbox): two views of a 3 x 2-tile frame with partial edge tiles, random
+    bins, random fractional bboxes (some NaN, some past the frame)."""
     from cython3dmodelrenderer_tpu_torch.ops import binning, raster
 
     ntx, nty, n_views, height, width = 3, 2, 2, 24, 80
@@ -245,8 +246,7 @@ def test_walk_instructions_counts_bbox_pixels():
         for tri in pair_tri[s:s + c]:
             b = rows[tri, binning.IDX_BBOX:binning.IDX_BBOX + 4]
             box = (px >= b[0]) & (px < b[1]) & (py >= b[2]) & (py < b[3])
-            want += (raster.INSTR_PER_BBOX_PIXEL * int(box.sum())
-                     + raster.INSTR_PER_OTHER_PIXEL * int((~box).sum()))
+            want += raster.INSTR_PER_BBOX_PIXEL * int(box.sum())
     got = raster.walk_instructions(
         torch.from_numpy(rows), torch.from_numpy(pair_tri),
         torch.from_numpy(starts), torch.from_numpy(counts), ntx, nty,

@@ -22,6 +22,7 @@ import cython3dmodelrenderer_tpu_torch as pt
 
 SIZE = 128
 FOV = 45
+C1_SIZE = 64            # the ROADMAP C1 scene: igor_sphere fitted, (0, 0, 1)
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +61,41 @@ def test_render_matches_jax(jax_render, illum):
     np.testing.assert_array_equal(n.view(np.int32),
                                   jax_render[f"{illum}/n"].view(np.int32))
     assert z.max() == np.float32(1e6) and z.min() < 1.0
+
+
+def c1_order_types(pkg):
+    """``SimpleIterator`` and two iterator types with no order of their
+    own: a ``TriangleIterator`` subclass (its ``order_indices`` raises
+    ``NotImplementedError``) and ``object`` (no ``order_indices``)."""
+    class NoOrder(pkg.TriangleIterator):
+        pass
+
+    return {"simple": pkg.SimpleIterator, "no_order": NoOrder,
+            "object": object}
+
+
+@pytest.mark.parametrize("order", ["no_order", "object"])
+def test_iterator_without_order_renders_in_model_order(jax_render, order):
+    """ROADMAP C1: an iterator type without ``order_indices`` renders in
+    model order, byte-equal to JAX's frame and to ``SimpleIterator``'s."""
+    state = {k: jax_render[f"c1/{k}"] for k in ("vertices", "faces_v",
+                                                "normals", "faces_n",
+                                                "colors", "faces_vt")}
+
+    def render(iterator):
+        filler = pt.AdvancedPixelBufferFiller(C1_SIZE, C1_SIZE, fov=FOV,
+                                              device="cpu")
+        renderer = pt.Renderer(filler, pt.GuroIllumination([0, 0, 1]),
+                               iterator, C1_SIZE, C1_SIZE)
+        return renderer.render(pt.Model.from_state(state,
+                                                   device="cpu")).get_image()
+
+    types = c1_order_types(pt)
+    image = render(types[order])
+    np.testing.assert_array_equal(image, jax_render[f"c1/{order}"])
+    np.testing.assert_array_equal(image, jax_render["c1/simple"])
+    np.testing.assert_array_equal(image, render(types["simple"]))
+    assert (image.max(-1) > 0).mean() > 0.3
 
 
 def test_from_state_round_trip(jax_render):
@@ -165,6 +201,21 @@ def _jax_main(job_path, out_path):
         out[f"{name}/image"] = renderer.render(model).get_image()
         out[f"{name}/z"] = renderer.z_buffer.get_image()
         out[f"{name}/n"] = renderer.n_buffer.get_image()
+    model = jx.Model.read_model(os.path.join(REPO, "assets", "igor_sphere.obj"))
+    jx.fit_model(model)
+    model.shift([0.0, 0.0, 1.0])
+    colors = rng.uniform(0, 255, (model.n_vertices(), 3)).astype(np.float32)
+    model._colors = jnp.asarray(colors)
+    model._faces_vt = model._faces_v
+    out.update({"c1/vertices": model._vertices, "c1/faces_v": model._faces_v,
+                "c1/normals": model._normals, "c1/faces_n": model._faces_n,
+                "c1/colors": colors, "c1/faces_vt": model._faces_v})
+    for name, iterator in c1_order_types(jx).items():
+        filler = jx.AdvancedPixelBufferFiller(C1_SIZE, C1_SIZE, fov=fov,
+                                              backend="pallas", interpret=True)
+        renderer = jx.Renderer(filler, jx.GuroIllumination([0, 0, 1]),
+                               iterator, C1_SIZE, C1_SIZE, use_tqdm=False)
+        out[f"c1/{name}"] = renderer.render(model).get_image()
     np.savez(out_path, **{k: np.asarray(v) for k, v in out.items()})
 
 

@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
         [--size 1024] [--frames 20] [--out DIR] [--sweep 1,2,4,8] [--b5]
-        [--binning]
+        [--binning] [--raster [SOURCE.cu ...]] [--rounds 4]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
@@ -19,7 +19,15 @@ B5's wrapper on the scene's spans (group 16, sub 8, ample slot_cap);
 ``--binning`` traces ``--frames`` calls of each binning route on the
 scene's lambert_u8 spans (``binsort.bin_sort``, and ``binsort.bin_pairs``
 where the pair key fits in 31 bits): device operations and device ms a
-call.
+call. ``--raster`` times kernel B1 (``raster_tiles``) on the lambert_u8
+inputs ``chip_smoke.py`` times it on: sphere16k@1024² (sort route),
+torus262k@1024² (the B3 route) and the 2-view sweep batch. It takes the
+repository's ``csrc/raster.cu`` and each extra SOURCE.cu that exports the
+same ``raster_launch`` (for example the parent commit's, unpacked with
+``git archive``), built with the repository's nvcc flags, and measures
+device ms and device operations a call (``measure.profile_calls``)
+``--rounds`` times in turns (A B B A ...), after checking each library's
+image against ``raster_tiles_plain``.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
@@ -67,6 +75,83 @@ def trace(label, fn, reps, per, out):
                                     row_limit=15))
 
 
+def build_raster_variant(source):
+    """nvcc ``source`` (a file exporting ``raster_launch``) with the
+    repository's flags into ``build/kernels/variants``; return it loaded
+    and bound like the repository's raster kernel."""
+    import hashlib
+    from pathlib import Path
+
+    from cython3dmodelrenderer_tpu_torch import cuda_build
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out = cuda_build.BUILD_DIR / "variants" / f"lib{source.stem}-{digest}.so"
+    report = cuda_build.compile_source(source, out)
+    print(f"built {source}: " + " / ".join(
+        ln.split("ptxas info    :")[-1].strip()
+        for ln in report.splitlines() if "Used" in ln or "spill" in ln))
+    return raster.bind(cuda_build.open_library(out))
+
+
+def raster_inputs(sphere, torus):
+    """B1's lambert_u8 inputs, as ``chip_smoke.py`` times them."""
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    out = {}
+    for tag, model in (("sphere16k@1024", sphere), ("torus262k@1024", torus)):
+        kw, (tx0, cx, ty0, cy, ntx, nty, total) = chip_smoke.frame_setup(
+            model, "lambert_u8", 1024)
+        out[tag] = chip_smoke.with_bins(kw, raster.route_bins(
+            tx0, cx, ty0, cy, ntx, nty, total, raster.GROUP, "cuda"))
+    gen = torch.Generator().manual_seed(7)
+    centred = chip_smoke.turntable_model("cuda")
+    colors = torch.randint(256, (centred.n_triangles(), 3), generator=gen)
+    colors = colors.to("cuda", torch.float32)[:, None, :].expand(-1, 3, 3)
+    out["sweep vb2"] = chip_smoke.sweep_batch_inputs(
+        centred, colors.contiguous(), "lambert_u8")
+    return out
+
+
+def raster_ab(sources, rounds):
+    """Device ms a call of B1 for the repository's kernel and each source."""
+    from cython3dmodelrenderer_tpu_torch.measure import profile_calls
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    libs = [("repo", raster._lib())]
+    libs += [(src, build_raster_variant(src)) for src in sources]
+    v, f = chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
+                                       chip_smoke.TRI_SPHERE_RINGS)
+    sphere = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
+    v, f = chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS)
+    torus = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
+    light = pt.GuroIllumination([0, 0, 1]).light_direction
+    repo_lib = raster._lib
+    try:
+        for tag, kw in raster_inputs(sphere, torus).items():
+            opts = dict(light=light, gbuffer=False, image=True)
+            want = raster.raster_tiles_plain(**kw, **opts)[1]
+
+            def call():
+                return raster.raster_tiles(**kw, **opts)[1]
+
+            for name, lib in libs:
+                raster._lib = lambda lib=lib: lib
+                equal = torch.equal(call(), want) and torch.equal(call(), want)
+                print(f"{tag} {name}: image == raster_tiles_plain, twice: "
+                      f"{equal}")
+            ms = {name: [] for name, _lib in libs}
+            for r in range(rounds):
+                for name, lib in (libs if r % 2 == 0 else libs[::-1]):
+                    raster._lib = lambda lib=lib: lib
+                    ms[name].append(profile_calls(call, 20))
+            print(json.dumps({"raster": tag, "pairs": int(kw["pair_tri"].numel()),
+                              "device_ms_ops": ms}))
+    finally:
+        raster._lib = repo_lib
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
@@ -78,10 +163,16 @@ def main():
                     help="comma-separated view_batch values to trace")
     ap.add_argument("--b5", action="store_true")
     ap.add_argument("--binning", action="store_true")
+    ap.add_argument("--raster", nargs="*", metavar="SOURCE.cu")
+    ap.add_argument("--rounds", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
     os.makedirs(args.out, exist_ok=True)
+    if args.raster is not None:
+        print(smi("name,power.limit"))
+        raster_ab(args.raster, args.rounds)
+        return
     if args.scene == "sphere16k":
         v, f = chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
                                            chip_smoke.TRI_SPHERE_RINGS)
