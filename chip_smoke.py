@@ -65,17 +65,22 @@ Phases (one line each; any failure exits nonzero):
              the sweep / N), B1's view-batched time with its device ms,
              and B2 at the view_batch=4 batch's pair keys beside
              torch.sort;
-8. b5      — B5 (csrc/binsort_grouped.cu, on no render path) against its
-             plain version on sphere16k@1024²'s spans, group 16, sub 8, at
-             an ample and an undersized slot_cap: bit-equal in every
-             output, equal to itself on a second run; its time and the
-             plain version's;
+8. b5      — B5 (B4's bins, then csrc/binsort_grouped.cu; on no render
+             path) on sphere16k@1024²'s spans, group 16, sub 8, at an
+             ample, an undersized and a mid-span slot_cap (the expansion
+             cut inside a triangle's span, checked): B4, B2 and the
+             placement each launched once a call; bit-equal in all 8
+             outputs to bin_sort_grouped_plain and place_from_bins_plain,
+             equal to itself on a second run; at the first two caps its
+             time, device ms and device operations a call, and the plain
+             version's time;
 9. probes  — the calibration probes' path, as their ``__main__``s run it:
              P2 (probes/vpu_cal.py) at n_ops 8/32/128/512 and P1
              (probes/epi_prims.py), all 15 primitives at 0/128/256
              replicas, printed as the scripts print them; then P2 against
              its plain version at n_ops 8, 32 and 512 (bit-equal, equal to
-             itself on a second run) and P1 at 0, 2 and 128 replicas: one
+             itself on a second run) and P1 at 0, 2, 128 and 129
+             replicas (on P1's grid of up to 64 x 32 blocks): one
              replica bit-equal to the plain version for the element
              primitives and within rtol 2e-6 for the summed ones (up to
              2 x 65,536 floats summed in another order); at R replicas
@@ -83,15 +88,17 @@ Phases (one line each; any failure exits nonzero):
              R f32 adds of their own one-replica value, and the kernel
              equal to the plain version (element primitives) or within
              rtol 2e-6 + R x 2^-23 (the rest); equal to itself on a second
-             run; torch.matmul beside segsum / segsum6 as a yardstick.
+             run; torch.matmul beside segsum / segsum6 as a yardstick;
+             P1 epi_cur6 x 128 and P2 n_ops 512 in device ms and device
+             operations a call.
 
 The next-to-last lines are the nvidia-smi name/power-limit line and one
 JSON object with the kernels' launch counts, errors, times and bounds
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
 operations this run's inputs need over 33.5 T instructions/s; P1's
 ``max_abs_err`` is the one-replica difference that its checks hold; the
-three B1/B3 entries also carry ``device_ms`` and ``device_ops``); the
-last line is ``{"ok": true, "device": {...}}``.
+three B1/B3 entries, B5, P1 and P2 also carry ``device_ms`` and
+``device_ops``); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -127,7 +134,7 @@ SWEEP_REPS = 10
 B5_GROUP, B5_SUB = 16, 8
 P2_CHECK_N_OPS = (8, 32, 512)
 P2_TIMED = 512                     # n_ops of the kernels line's P2 entry
-P1_CHECK_REPS = (0, 2, 128)
+P1_CHECK_REPS = (0, 2, 128, 129)   # 129: no power-of-two chunk divides it
 P1_RTOL = 2e-6           # summed primitives: up to 2 x 65,536 floats
 # R replicas: each of R f32 adds rounds by at most half an ulp of the
 # running sum, R x 2^-24 relative on each side
@@ -1193,46 +1200,105 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
     return out, b1, raster_bound(kw)
 
 
-def phase_b5(scenes):
-    """B5 against its plain version at sphere16k@1024²'s spans."""
-    import torch
+def mid_span_cap(cx, cy):
+    """The largest multiple of 128 below the spans' pair total at which
+    B5's expansion is cut inside a triangle's span, past its first pair."""
+    import numpy as np
 
-    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    pc = cx.cpu().numpy().astype(np.int64) * cy.cpu().numpy()
+    inclusive = np.cumsum(pc)
+    total = int(inclusive[-1]) if pc.size else 0
+    for cap in range((total - 1) // 128 * 128, 0, -128):
+        tc = int(np.searchsorted(inclusive, cap, side="right"))
+        if cap > inclusive[tc] - pc[tc]:
+            return cap
+    raise SmokeFailure(f"no slot cap below {total} pairs cuts inside a span")
+
+
+def time_b5(spans, cap):
+    """B5's wrapper and its plain version at ``cap``: CUDA-event ms a
+    call, and the wrapper's device ms and device operations a call
+    (torch.profiler)."""
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
     from cython3dmodelrenderer_tpu_torch.ops.binsort_grouped import (
         bin_sort_grouped, bin_sort_grouped_plain)
+
+    def call():
+        return bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB)
+
+    dev_ms, ops = profile_calls(call, 20)
+    return {"ms": cuda_time_ms(call, 50),
+            "plain_ms": cuda_time_ms(lambda: bin_sort_grouped_plain(
+                *spans, cap, B5_GROUP, B5_SUB), 20),
+            "device_ms": dev_ms, "device_ops": ops}
+
+
+def phase_b5(scenes):
+    """B5 at sphere16k@1024²'s spans: counts set to 0, the three caps'
+    run, counts read (B4, B2 and the placement each launched once a cap);
+    each output against both plain versions and a second run; timings."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.ops.binsort import (bin_sort,
+                                                             bin_sort_plain)
+    from cython3dmodelrenderer_tpu_torch.ops.binsort_grouped import (
+        bin_sort_grouped, bin_sort_grouped_plain, clamp_cut,
+        place_from_bins_plain)
+    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     tx0, cx, ty0, cy, ntx, nty, total = frame_setup(scenes["sphere16k"],
                                                     "lambert_u8", SIZE)[1]
     spans = (tx0, cx, ty0, cy, ntx, nty)
     demand = int(bin_sort_grouped_plain(*spans, 1 << 16, B5_GROUP, B5_SUB)[6])
-    caps = (("ample", demand), ("undersized", 128 * (total // 256)))
-    bin_sort_grouped.launches = 0                   # B5's own run
+    mid = mid_span_cap(cx, cy)
+    tc, keep = clamp_cut(cx, cy, mid)
+    require(0 < keep < int(cx[tc]) * int(cy[tc]),
+            f"B5 mid-span cap {mid}: the cut falls at pair {keep} of "
+            f"triangle {tc}'s span, not inside it")
+    caps = (("ample", min(demand, (1 << 17) - 128)),
+            ("undersized", 128 * (total // 256)), ("mid-span", mid))
+    counters = (bin_sort_grouped, bin_sort, sort_i32)
+    for c in counters:
+        c.launches = 0                              # B5's own run
     runs = [bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB) for _t, cap in caps]
     torch.cuda.synchronize()
-    launches = bin_sort_grouped.launches
-    require(launches > 0, "B5 was not launched")
+    launches = dict(zip(("placement", "binsort", "sort"),
+                        (c.launches for c in counters)))
+    require(all(n == len(caps) for n in launches.values()),
+            f"B5 did not run B4, B2 and its placement once a call: {launches}")
+    say("b5", f"kernel launches on B5's run ({len(caps)} calls): {launches}")
     err = 0
+    bins = bin_sort_plain(tx0, cx, ty0, cy, ntx, nty, total)
     for (tag, cap), got in zip(caps, runs):
         again = bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB)
         want = bin_sort_grouped_plain(*spans, cap, B5_GROUP, B5_SUB)
+        decomposed = place_from_bins_plain(bins, *spans, cap, B5_GROUP, B5_SUB)
         torch.cuda.synchronize()
         err = max([err] + [int((a - b).abs().max()) for a, b in zip(got, want)])
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+        require(len(got) == len(want) == 8
+                and all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(got, want)),
                 f"B5 {tag}: differs from the plain version")
+        require(all(torch.equal(a, b) for a, b in zip(got, decomposed)),
+                f"B5 {tag}: differs from place_from_bins_plain")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"B5 {tag}: two runs differ")
         placed = int((got[0] != tx0.shape[0]).sum())
         require(0 < placed <= min(total, cap), f"B5 {tag}: {placed} placed")
         say("b5", f"bin_sort_grouped {tag} (slot_cap {cap}, {total} pairs, "
-            f"{placed} placed, total_slots {int(got[6])}): bit-equal to plain "
-            "in every output, deterministic")
-    cap = caps[0][1]
-    kt = (cuda_time_ms(lambda: bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB), 50),
-          cuda_time_ms(lambda: bin_sort_grouped_plain(*spans, cap, B5_GROUP,
-                                                   B5_SUB), 50))
-    say("timing", f"B5 bin_sort_grouped sphere16k@{SIZE} ({total} pairs, "
-        f"slot_cap {cap}): kernel {kt[0]:.4f} ms, plain {kt[1]:.4f} ms")
-    return launches, err, kt, binning_bound(spans, runs[0], total)
+            f"{placed} placed, total_slots {int(got[6])}): bit-equal to both "
+            "plain versions in all 8 outputs, deterministic")
+    times = {}
+    for tag, cap in caps[:2]:
+        times[tag] = time_b5(spans, cap)
+        say("timing", f"B5 bin_sort_grouped sphere16k@{SIZE} {tag} ({total} "
+            f"pairs, slot_cap {cap}): kernel {times[tag]['ms']:.4f} ms, plain "
+            f"{times[tag]['plain_ms']:.4f} ms (CUDA events); device "
+            f"{times[tag]['device_ms']} ms in {times[tag]['device_ops']} "
+            "device operations a call")
+    return (launches["placement"], err, times,
+            binning_bound(spans, runs[0], total))
 
 
 def max_abs_err(got, want):
@@ -1249,6 +1315,7 @@ def phase_probes():
     import torch
 
     from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls,
                                                          roofline_ms)
     from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
 
@@ -1321,10 +1388,15 @@ def phase_probes():
     p2_ms = cal["ms"][P2_TIMED]
     p2_plain = cuda_time_ms(lambda: vpu_cal.run_once_plain(x2, P2_TIMED), 1,
                             warmup=0)
+    p2_dev = profile_calls(lambda: vpu_cal.run_once(x2, P2_TIMED), 20)
     name, reps = P1_TIMED
     p1_ms = cuda_time_ms(lambda: epi_prims.run(name, reps, x1, smat), 20)
     p1_plain = cuda_time_ms(lambda: epi_prims.run_plain(name, reps, x1, smat),
                             2, warmup=1)
+    p1_dev = profile_calls(lambda: epi_prims.run(name, reps, x1, smat), 20)
+    say("probes", f"P1 {name} reps={reps}: device "
+        f"{p1_dev[0]} ms in {p1_dev[1]} device operations a call; P2 "
+        f"n_ops={P2_TIMED}: device {p2_dev[0]} ms in {p2_dev[1]}")
     v = x1.reshape(-1, epi_prims.K)
     mm = {"segsum": cuda_time_ms(lambda: torch.matmul(v, smat), 50),
           "segsum6": cuda_time_ms(lambda: torch.matmul(v.repeat(6, 1), smat),
@@ -1355,8 +1427,10 @@ def phase_probes():
               "epi_prims_walls_ms": {k: v[1] for k, v in slopes.items()},
               "matmul_us": {k: ms * 1e3 for k, ms in mm.items()}}
     times = {"vpu_cal": (p2_ms, p2_plain), "epi_prims": (p1_ms, p1_plain)}
+    device = {k: {"device_ms": d[0], "device_ops": d[1]}
+              for k, d in (("vpu_cal", p2_dev), ("epi_prims", p1_dev))}
     return launches, {"vpu_cal": p2_err, "epi_prims": p1_err}, times, \
-        bounds, probes
+        bounds, probes, device
 
 
 def main():
@@ -1392,14 +1466,15 @@ def main():
         sweep_err = phase_kernels_sweep(tt_model, sweep_colors, light)
         sweep_ms, sweep_kt, sweep_bound = phase_timing_sweep(
             sweep_renderers, tt_model, sweep_colors, light, frame_ms)
-        b5_launches, b5_err, b5_kt, b5_bound = phase_b5(scenes)
-        (probe_launches, probe_err, probe_ms, probe_bounds,
-         probes) = phase_probes()
+        b5_launches, b5_err, b5_ms, b5_bound = phase_b5(scenes)
+        (probe_launches, probe_err, probe_ms, probe_bounds, probes,
+         probe_dev) = phase_probes()
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     frame_ms.update(large_ms)
     frame_ms["sweep_ms_per_view"] = sweep_ms
+    frame_ms["b5_sphere16k@1024"] = b5_ms
 
     def entry(name, source, replaces, n, err, times, bound, library=None,
               device=None):
@@ -1408,7 +1483,7 @@ def main():
                "replaces": replaces, "launches": n, "max_abs_err": err,
                "ms": times[0], "plain_ms": times[1], "bound_ms": bound[0],
                "bound_by": bound[1], "library_ms": library}
-        if device is not None:          # B1's kernel time under the profiler
+        if device is not None:          # the kernel time under the profiler
             out.update(device_ms=device["device_ms"],
                        device_ops=device["device_ops"])
         return out
@@ -1434,15 +1509,17 @@ def main():
               sweep_err, (sweep_kt["ms"], sweep_kt["plain_ms"]), sweep_bound,
               device=sweep_kt),
         entry("bin_sort_grouped (B5)", "binsort_grouped.cu",
-              pkg + "binsort_pallas.py:106", b5_launches, b5_err, b5_kt,
-              b5_bound),
+              pkg + "binsort_pallas.py:106", b5_launches, b5_err,
+              (b5_ms["ample"]["ms"], b5_ms["ample"]["plain_ms"]), b5_bound,
+              device=b5_ms["ample"]),
         entry("vpu_cal (P2)", "vpu_cal.cu", "tools/probes/vpu_cal.py:51",
               probe_launches["vpu_cal"], probe_err["vpu_cal"],
-              probe_ms["vpu_cal"], probe_bounds["vpu_cal"]),
+              probe_ms["vpu_cal"], probe_bounds["vpu_cal"],
+              device=probe_dev["vpu_cal"]),
         entry("epi_prims epi_cur6 x128 (P1)", "epi_prims.cu",
               "tools/probes/epi_prims.py:275", probe_launches["epi_prims"],
               probe_err["epi_prims"], probe_ms["epi_prims"],
-              probe_bounds["epi_prims"]),
+              probe_bounds["epi_prims"], device=probe_dev["epi_prims"]),
     ]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)

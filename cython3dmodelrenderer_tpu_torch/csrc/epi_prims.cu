@@ -14,33 +14,41 @@
 //
 // Where the TPU design does not carry over, and what this one does:
 //
+//  * The grid. The TPU ran every replica in sequence on one core. Here the
+//    work is a 2-D grid over (row block, replica chunk): block (q, c) holds
+//    the 8 (h, w) rows h = q / 4, w = 8 (q % 4) .. 8 (q % 4) + 7 (one warp
+//    each) and runs replicas [c R_c, (c + 1) R_c) of them in order, R_c =
+//    ceil(reps / kChunks): at most 32 chunks, so 2,048 blocks of 256
+//    threads at reps >= 32, as many at 256 replicas as at 128 (the slope
+//    over reps adds replicas, not blocks). That fills all 132 SMs several
+//    times over, as B1's epilogue, which this probe stands in for, runs
+//    on every SM at once. The slope over reps is the card's time per
+//    replica at full occupancy (earlier: one replica of one row on one
+//    SM, 16 SMs busy).
 //  * Memory. The TPU kept the 256 KB tile and the 1.5 MB attr6 in VMEM.
-//    A block has at most 227 KB of shared memory, so the work is split by
-//    TH row: block h holds row h of x, attr (16 KB each) and attr6 (96 KB)
-//    in dynamic shared memory (opted in above 48 KB; the segmented-sum
-//    primitives hold the 64 KB segment matrix and a 16 KB staging row
-//    instead of attr6). A launch that asks for more than the card allows
-//    is refused by cudaFuncSetAttribute, and the launcher returns that
-//    error.
+//    A block holds its 8 rows of x and attr (4 KB each) in dynamic shared
+//    memory; attr6[c] = x + c is the same __fadd_rn(attr, c) computed in
+//    registers. The segmented-sum primitives also hold the 64 KB segment
+//    matrix (an input read in k order) and a 4 KB staging row a warp
+//    (opted in above 48 KB). A launch that asks for more than the card
+//    allows is refused by cudaFuncSetAttribute, and the launcher returns
+//    that error.
 //  * Layout. Every primitive works along the 128-lane axis of one (h, w)
-//    row, so warp w of block h owns row (h, w) and lane l holds the four
-//    consecutive lanes k = 4l..4l+3. A 128-lane min or sum is a local
-//    step and a 5-step shuffle tree; a 16-lane segment is 4 threads, so
-//    segmented ops are 2 shuffle steps; a circular roll by s is one
-//    __shfl_sync per register (from lane l - s/4 or l - s/4 - 1). The
-//    16-lane slice primitives (slicered, epi_slice) run on the quad that
-//    holds lanes 48..63; the other lanes compute alongside at no saving.
-//  * Replicas run IN SEQUENCE inside each block, as the TPU ran them on
-//    one core: the 16 blocks (one per TH row, 1024 threads each) walk all
-//    reps, so the slope over reps measures the LATENCY of one replica of
-//    one row on one SM (16 SMs busy in parallel), not the card's
-//    throughput.
-//  * The combine is deterministic: warp w writes its (h, w) partial of
-//    rep r to partials[r][h][w]; combine_kernel sums each rep's 512
-//    partials in (h, w) order, then the reps in order. For the
-//    primitives whose scalar is one element (reduce, wherered, extract,
-//    roll, stack6red, segsum, segsum6) only row (0, 0) contributes and
-//    the others write 0, so the scalar is that element exactly.
+//    row, so each warp owns one row and lane l holds the four consecutive
+//    lanes k = 4l..4l+3. A 128-lane min or sum is a local step and a
+//    5-step shuffle tree; a 16-lane segment is 4 threads, so segmented ops
+//    are 2 shuffle steps; a circular roll by s is one __shfl_sync per
+//    register (from lane l - s/4 or l - s/4 - 1). The 16-lane slice
+//    primitives (slicered, epi_slice) run on the quad that holds lanes
+//    48..63; the other lanes compute alongside at no saving.
+//  * The combine is deterministic: the warp of row (h, w) writes its
+//    partial of rep r to partials[r][h][w], whichever block ran it;
+//    combine_kernel sums each rep's 512 partials in (h, w) order, then
+//    the reps in order, so the output does not depend on the grid. For
+//    the primitives whose scalar is one element (reduce, wherered,
+//    extract, roll, stack6red, segsum, segsum6) only row (0, 0)
+//    contributes and the others write 0, so the scalar is that element
+//    exactly.
 //  * Keeping the work. nvcc removes work whose result is unused, and those
 //    element primitives use one element of their tensor. Every element of
 //    their tensor goes through keep(), an empty asm volatile with the value
@@ -62,9 +70,12 @@
 //
 // What bounds it on an H100: per replica, tens of instructions per element
 // (epi_cur6: ~27 per element, 65,536 elements) against no device memory
-// (the tile is read once), so the bound is operations; in sequence on 16
-// SMs, dependent shuffle trees make each replica latency bound, which is
-// what the probe measures.
+// (the tile is read once), so the bound is operations. A warp's replica is
+// a chain of dependent shuffle trees; 8 warps a block and several blocks an
+// SM (__launch_bounds__(256, 4): at most 64 registers) give each SM other
+// warps' chains to issue while one waits. The combine is one block: a warp
+// a rep at a time (coalesced loads, 16 row sums in parallel, then a
+// 16-add fold), then one thread's in-order fold of the reps.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,9 +85,14 @@ namespace {
 constexpr int kTH = 16;
 constexpr int kTW = 32;
 constexpr int kK = 128;
-constexpr int kRow = kTW * kK;            // floats in one TH row
-constexpr int kThreads = kTW * 32;        // one warp per (h, w) row
-constexpr int kCombineThreads = 256;
+constexpr int kWarps = 8;                 // (h, w) rows a block, a warp each
+constexpr int kThreads = kWarps * 32;
+constexpr int kMinBlocks = 4;             // an SM's blocks: <= 64 registers
+constexpr int kRowBlocks = kTH * kTW / kWarps;
+constexpr int kBlockFloats = kWarps * kK; // floats of a block's rows
+constexpr int kChunks = 32;               // replica chunks a launch, at most
+constexpr int kCombineThreads = 512;
+constexpr int kCombineWarps = kCombineThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Prim {
@@ -85,18 +101,14 @@ enum Prim {
   kEpiCur8, kEpiRrGroup, kNumPrims
 };
 
-__host__ __device__ constexpr bool is_group(int p) {
-  return p == kEpiCur8 || p == kEpiRrGroup;
-}
 __host__ __device__ constexpr bool is_segsum(int p) {
   return p == kSegSum || p == kSegSum6;
 }
 
 // Dynamic shared memory a primitive's block needs, in bytes.
 int smem_need(int p) {
-  int floats = 2 * kRow;                                   // x, attr
-  if (is_group(p)) floats += 6 * kRow;                     // attr6
-  if (is_segsum(p)) floats += kK * kK + kRow;              // smat, stage
+  int floats = 2 * kBlockFloats;                           // x, attr
+  if (is_segsum(p)) floats += kK * kK + kBlockFloats;      // smat, stage
   return floats * static_cast<int>(sizeof(float));
 }
 
@@ -165,12 +177,16 @@ struct Row {
   float x[4];            // x + rep * 1e-30 at lanes 4l..4l+3
   float attr[4];         // attr at the same lanes
   float x000;            // (x + rep * 1e-30)[0, 0, 0]
-  const float* s_attr;   // attr row (kTW, kK) in shared memory
-  const float* s_attr6;  // attr6 rows (6, kTW, kK), group primitives
+  const float* s_attr;   // this warp's attr row (kK) in shared memory
   const float* s_smat;   // (kK, kK), segsum primitives
   float* s_stage;        // this warp's 128 floats, segsum primitives
-  int w, lane;
+  int lane;
 };
+
+// attr6[c] + x000 at lane 4l + i: attr6[c] = x + c, as the TPU staged it
+__device__ __forceinline__ float attr6_plus(const Row& r, int c, int i) {
+  return __fadd_rn(__fadd_rn(r.attr[i], static_cast<float>(c)), r.x000);
+}
 
 __device__ __forceinline__ float lanef(const Row& r, int i) {
   return static_cast<float>(4 * r.lane + i);
@@ -351,7 +367,7 @@ __device__ float prim(const Row& r, bool origin) {
     float total = 0.0f;
     for (int s = 0; s < 8; ++s) {
       const float t = stripe(r, s, [&](int c, int i) {
-        return __fadd_rn(r.s_attr6[c * kRow + r.w * kK + 4 * lane + i], r.x000);
+        return attr6_plus(r, c, i);
       });
       total = __fadd_rn(total, t);
     }
@@ -419,7 +435,7 @@ __device__ float prim(const Row& r, bool origin) {
     const float lmin = quad_min(min4(v));
     float t = 0.0f;
     for (int c = 0; c < 6; ++c) {
-      const float* a = r.s_attr + r.w * kK + ((3 + c) % 8) * 16 + 4 * j;
+      const float* a = r.s_attr + ((3 + c) % 8) * 16 + 4 * j;
       float m = -INFINITY;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -456,11 +472,7 @@ __device__ float prim(const Row& r, bool origin) {
     for (int c = 0; c < 6; ++c) {
       float aw[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a6 = __fadd_rn(
-            r.s_attr6[c * kRow + r.w * kK + 4 * lane + i], r.x000);
-        aw[i] = win[i] ? a6 : 0.0f;
-      }
+      for (int i = 0; i < 4; ++i) aw[i] = win[i] ? attr6_plus(r, c, i) : 0.0f;
       segred<true>(aw, lane);
       const int p = c < 3 ? c : c + 1;
 #pragma unroll
@@ -473,31 +485,23 @@ __device__ float prim(const Row& r, bool origin) {
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 epi_kernel(const float* __restrict__ x, const float* __restrict__ smat,
-           int reps, float* __restrict__ partials) {
+           int reps, int per_chunk, float* __restrict__ partials) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_x = smem;
-  float* s_attr = s_x + kRow;
-  float* s_extra = s_attr + kRow;          // attr6, or smat then the stage
-  const int h = blockIdx.x;
-  const int w = threadIdx.x / 32;
+  float* s_attr = s_x + kBlockFloats;
+  float* s_extra = s_attr + kBlockFloats;  // smat, then the stage
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int at = w * kK + 4 * lane;
+  const int row = blockIdx.x * kWarps + warp;       // h * kTW + w
+  const int at = warp * kK + 4 * lane;              // in the block's rows
 
   const float4 xin =
-      reinterpret_cast<const float4*>(x + static_cast<size_t>(h) * kRow)[at / 4];
+      reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * kK)[lane];
   reinterpret_cast<float4*>(s_x)[at / 4] = xin;
   reinterpret_cast<float4*>(s_attr)[at / 4] = xin;
-  if (is_group(P)) {
-    for (int c = 0; c < 6; ++c) {
-      const float fc = static_cast<float>(c);
-      reinterpret_cast<float4*>(s_extra + c * kRow)[at / 4] =
-          make_float4(__fadd_rn(xin.x, fc), __fadd_rn(xin.y, fc),
-                      __fadd_rn(xin.z, fc), __fadd_rn(xin.w, fc));
-    }
-  }
   if (is_segsum(P)) {
     for (int e = threadIdx.x; e < kK * kK / 4; e += kThreads)
       reinterpret_cast<float4*>(s_extra)[e] =
@@ -507,14 +511,14 @@ epi_kernel(const float* __restrict__ x, const float* __restrict__ smat,
   __syncthreads();
 
   Row r;
-  r.s_attr = s_attr;
-  r.s_attr6 = s_extra;
+  r.s_attr = s_attr + warp * kK;
   r.s_smat = s_extra;
-  r.s_stage = s_extra + kK * kK + w * kK;
-  r.w = w;
+  r.s_stage = s_extra + kK * kK + warp * kK;
   r.lane = lane;
-  const bool origin = h == 0 && w == 0;
-  for (int rep = 0; rep < reps; ++rep) {
+  const bool origin = row == 0;
+  const int rep0 = blockIdx.y * per_chunk;
+  const int rep1 = min(rep0 + per_chunk, reps);
+  for (int rep = rep0; rep < rep1; ++rep) {
     const float pert = __fmul_rn(static_cast<float>(rep), 1e-30f);
     const float4 xv = reinterpret_cast<const float4*>(s_x)[at / 4];
     const float4 av = reinterpret_cast<const float4*>(s_attr)[at / 4];
@@ -529,34 +533,58 @@ epi_kernel(const float* __restrict__ x, const float* __restrict__ smat,
     r.x000 = __fadd_rn(x000_in, pert);
     const float part = prim<P>(r, origin);
     if (lane == 0)
-      partials[(static_cast<size_t>(rep) * kTH + h) * kTW + w] = part;
+      partials[static_cast<size_t>(rep) * kTH * kTW + row] = part;
   }
 }
 
+// The 16 partials of column `lane` of rep `rep`'s (h, w) table.
+__device__ __forceinline__ void load_column(const float* __restrict__ partials,
+                                            int rep, int lane, float (&c)[kTH]) {
+  const float* p = partials + static_cast<size_t>(rep) * kTH * kTW + lane;
+#pragma unroll
+  for (int h = 0; h < kTH; ++h) c[h] = p[h * kTW];
+}
+
 // out[0] = sum over reps, in order, of each rep's partials summed in
-// (h, w) order.
+// (h, w) order: each TH row's 32 partials left to right, then the 16 rows
+// in order. Warp i of the block takes reps i, i + 16, ... of a batch: its
+// lanes read the rep's table a row at a time, coalesced (the next rep's
+// loads issued before this rep's sums), into shared memory at h * 32 +
+// (w ^ h), so neither the stores nor the row walks conflict; lane h < 16
+// sums row h, lane 0 folds the 16 rows, and thread 0 folds the batch's
+// reps in order.
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ partials, int reps,
                float* __restrict__ out) {
+  __shared__ float s_rows[kCombineWarps][kTH * kTW];
   __shared__ float s_v[kCombineThreads];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int h = lane % kTH;
+  float* rows = s_rows[warp];
   float acc = 0.0f;
   for (int base = 0; base < reps; base += kCombineThreads) {
-    const int rep = base + threadIdx.x;
-    if (rep < reps) {
-      const float* p = partials + static_cast<size_t>(rep) * kTH * kTW;
-      float v = 0.0f;
-      for (int h = 0; h < kTH; ++h) {
-        float row = p[h * kTW];
-        for (int w = 1; w < kTW; ++w) row = __fadd_rn(row, p[h * kTW + w]);
-        v = h == 0 ? row : __fadd_rn(v, row);
-      }
-      s_v[threadIdx.x] = v;
+    const int n = min(kCombineThreads, reps - base);
+    float next[kTH];
+    if (warp < n) load_column(partials, base + warp, lane, next);
+    for (int i = warp; i < n; i += kCombineWarps) {
+#pragma unroll
+      for (int k = 0; k < kTH; ++k) rows[k * kTW + (lane ^ k)] = next[k];
+      if (i + kCombineWarps < n)
+        load_column(partials, base + i + kCombineWarps, lane, next);
+      __syncwarp();
+      float row = rows[h * kTW + h];                   // w = 0
+#pragma unroll
+      for (int w = 1; w < kTW; ++w) row = __fadd_rn(row, rows[h * kTW + (w ^ h)]);
+      float v = __shfl_sync(kFull, row, 0);
+#pragma unroll
+      for (int k = 1; k < kTH; ++k) v = __fadd_rn(v, __shfl_sync(kFull, row, k));
+      if (lane == 0) s_v[i] = v;
+      __syncwarp();                      // rows is rewritten next rep
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      const int n = min(kCombineThreads, reps - base);
+    if (threadIdx.x == 0)
       for (int t = 0; t < n; ++t) acc = __fadd_rn(acc, s_v[t]);
-    }
     __syncthreads();
   }
   if (threadIdx.x == 0) out[0] = acc;
@@ -567,9 +595,11 @@ cudaError_t launch(const float* x, const float* smat, int reps,
                    float* partials, int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       epi_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  epi_kernel<P><<<kTH, kThreads, smem_bytes, stream>>>(x, smat, reps,
-                                                       partials);
+  if (err != cudaSuccess || reps == 0) return err;
+  const int per_chunk = (reps + kChunks - 1) / kChunks;
+  const dim3 grid(kRowBlocks, (reps + per_chunk - 1) / per_chunk);
+  epi_kernel<P><<<grid, kThreads, smem_bytes, stream>>>(x, smat, reps,
+                                                        per_chunk, partials);
   return cudaGetLastError();
 }
 
@@ -587,21 +617,25 @@ int epi_prims_smem_bytes(int prim) {
 }
 
 // Primitive `prim` (the order of probes/epi_prims.py ALL_PRIMS) over
-// `reps` replicas on `stream`: x (16, 32, 128) f32, smat (128, 128) f32,
-// partials (max(reps, 1), 16, 32) f32 scratch, out (1,) f32. smem_bytes
-// is the dynamic shared memory to ask for (at least the primitive's
-// need). Returns a cudaError_t code (0 = both kernels launched).
+// `reps` replicas on `stream`: a grid of kRowBlocks x at most kChunks
+// blocks of ceil(reps / kChunks) replicas each (none when reps is 0), then
+// the combine. x (16, 32, 128) f32, smat (128, 128) f32, partials
+// (max(reps, 1), 16, 32) f32 scratch, out (1,) f32. smem_bytes is the
+// dynamic shared memory to ask for (at least the primitive's need).
+// Returns a cudaError_t code (0 = launched).
 int epi_prims_launch(int prim, const float* x, const float* smat, int reps,
                      float* partials, float* out, int smem_bytes, int device,
                      void* stream) {
-  if (prim < 0 || prim >= kNumPrims || reps < 0 || smem_bytes < smem_need(prim))
+  if (prim < 0 || prim >= kNumPrims || reps < 0
+      || smem_bytes < smem_need(prim))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (prim) {
 #define CASE(P) \
-    case P: err = launch<P>(x, smat, reps, partials, smem_bytes, s); break;
+    case P: err = launch<P>(x, smat, reps, partials, smem_bytes, s); \
+      break;
     CASE(kReduce) CASE(kWhereRed) CASE(kExtract) CASE(kRoll) CASE(kSegSum)
     CASE(kSegSum6) CASE(kStack6Red) CASE(kEpiCur) CASE(kEpiBflyOnce)
     CASE(kEpiBflyStripe) CASE(kSliceRed) CASE(kEpiSlice) CASE(kEpiCur6)

@@ -10,9 +10,10 @@ tensor and returns one element of it or its sum. The scratch tensors are
 ``attr = x`` and, for the group primitives, ``attr6[c] = x + c``.
 ``pltpu.roll`` is ``torch.roll``: lane k reads lane k - shift.
 
-On a CUDA tensor ``run`` launches ``csrc/epi_prims.cu`` (one block per TH
-row, one warp per (h, w) row, replicas in sequence; see the source); on a
-CPU tensor it runs ``run_plain``.
+On a CUDA tensor ``run`` launches ``csrc/epi_prims.cu``: 64 row blocks
+(8 (h, w) rows, a warp each) by up to 32 replica chunks, each block
+running its chunk's replicas in order (see the source); on a CPU tensor it
+runs ``run_plain``.
 
 On the card (fails without one)::
 
@@ -20,7 +21,10 @@ On the card (fails without one)::
 
 prints, for each primitive (default ``PRIMS``), µs per replica from the
 slope of ms per call over ``REPS`` replicas, and the ms per call (CUDA
-events), as the JAX probe prints them.
+events), as the JAX probe prints them. The TPU ran the replicas in
+sequence on one core; here the slope is the whole card's time per
+replica with every SM busy (before the grid spread the replicas, it was
+one replica of one TH row on one SM).
 """
 from __future__ import annotations
 
@@ -272,12 +276,13 @@ def run(name: str, reps: int, x: torch.Tensor, smat: torch.Tensor,
     if resolve_backend(backend, x.device) == "torch":
         return run_plain(name, reps, x, smat)
     out = _launch(name, reps, x, smat)
-    run.launches += 1
+    if reps > 0:
+        run.launches += 1
     return out
 
 
-#: kernel launches made by ``run`` (one per call on CUDA tensors: the
-#: primitive's kernel and its combine)
+#: launches of the primitive's kernel made by ``run`` (one per call on CUDA
+#: tensors with ``reps`` > 0; at 0 replicas only the combine runs)
 run.launches = 0
 
 

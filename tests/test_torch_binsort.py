@@ -102,16 +102,26 @@ def test_bin_sort_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
         binsort.bin_sort(args[0].to(torch.int64), *args[1:])
 
 
-def test_block_split_bounds_the_cursor_table():
-    """B5's split of its pairs into the blocks of its cursor table."""
-    split = binsort_grouped.block_split
-    assert split(16128, 2048) == (126, 128)
-    for t, tiles in [(1, 1), (300, 128), (1 << 18, 131072), (262144, 32768),
-                     (5, 1 << 25)]:
-        blocks, per = split(t, tiles)
-        assert (blocks - 1) * per < t <= blocks * per
-        assert blocks * tiles <= max(binsort_grouped.TABLE_ENTRIES, tiles)
-        assert per >= min(t, binsort_grouped.MIN_BLOCK_PAIRS)
+@pytest.mark.parametrize("case", ["random", "covers_all"])
+def test_bin_slots_are_the_scalar_cursors(case):
+    """B5 ranks each pair by its slot in B4's bins: bin slot j of tile t
+    holds the pair whose cursor, in a scalar walk of the pairs in
+    expansion order, read j - tile_starts[t]."""
+    spans, ntx, nty = CASES[case]
+    tx0, cx, ty0, cy = spans
+    total = int((cx * cy).sum())
+    pair_tri, starts, counts = binsort.bin_sort_plain(
+        *map(torch.from_numpy, spans), ntx, nty, total)
+    cursor = np.zeros(ntx * nty, np.int64)
+    for tri in range(len(tx0)):
+        for dy in range(cy[tri]):
+            for dx in range(cx[tri]):
+                tile = (ty0[tri] + dy) * ntx + tx0[tri] + dx
+                assert 0 <= cursor[tile] < counts[tile]
+                assert pair_tri[starts[tile] + cursor[tile]] == tri
+                cursor[tile] += 1
+    np.testing.assert_array_equal(cursor, counts.numpy())
+    assert binsort_grouped.TILE_BITS + binsort_grouped.TRI_BITS == 31
 
 
 def test_bins_past_the_int32_pair_key():

@@ -340,26 +340,63 @@ def grouped_spans(cuda, size, t, seed):
     return (tx0, cx, ty0, cy, size // 32, size // 16), int(counts.sum())
 
 
+def check_grouped(spans, slot_cap, t):
+    """B5 at ``slot_cap``: bit-equal to both plain versions in all 8
+    outputs and to itself on a second call, B4, B2 (on the 31-bit packed
+    tile keys) and the placement launched once a call; returns the number
+    of placed slots."""
+    want = binsort_grouped.bin_sort_grouped_plain(*spans, slot_cap, 16, 8)
+    total = int((spans[1].long() * spans[3]).sum())
+    bins = binsort.bin_sort_plain(*spans[:4], spans[4], spans[5], total)
+    decomposed = binsort_grouped.place_from_bins_plain(bins, *spans, slot_cap,
+                                                       16, 8)
+    before = (binsort_grouped.bin_sort_grouped.launches,
+              binsort.bin_sort.launches)
+    key_bits = []
+    b2 = binsort_grouped.sort_i32
+
+    def recording_sort(keys, bits):
+        key_bits.append(bits)
+        return b2(keys, bits)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(binsort_grouped, "sort_i32", recording_sort)
+        got = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
+        again = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
+    torch.cuda.synchronize()
+    assert binsort_grouped.bin_sort_grouped.launches == before[0] + 2
+    assert binsort.bin_sort.launches == before[1] + 2
+    assert key_bits == [binsort_grouped.TRI_BITS + binsort_grouped.TILE_BITS] * 2
+    for a, b, c, d in zip(got, again, want, decomposed):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, c) and torch.equal(a, b) and torch.equal(a, d)
+    placed = int((got[0] != t).sum())
+    assert placed <= min(total, slot_cap)
+    return placed
+
+
 @pytest.mark.parametrize("size,t", [(128, 300), (1024, 1000), (2016, 400)])
-@pytest.mark.parametrize("cap", ["ample", "half", "tiny"])
+@pytest.mark.parametrize("cap", ["ample", "half", "tiny", "mid_span"])
 def test_bin_sort_grouped_kernel_matches_plain(cuda, size, t, cap):
     spans, total = grouped_spans(cuda, size, t, size)
     plain = binsort_grouped.bin_sort_grouped_plain(*spans, 1 << 16, 16, 8)
     slot_cap = {"ample": min(int(plain[6]), (1 << 17) - 128),
-                "half": -(-total // 256) * 128, "tiny": 128}[cap]
-    want = binsort_grouped.bin_sort_grouped_plain(*spans, slot_cap, 16, 8)
-    before = binsort_grouped.bin_sort_grouped.launches
-    got = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
-    again = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
-    torch.cuda.synchronize()
-    assert binsort_grouped.bin_sort_grouped.launches == before + 2
-    for a, b, c in zip(got, again, want):
-        assert torch.equal(a, c) and torch.equal(a, b)
-    placed = int((got[0] != t).sum())
-    assert placed <= min(total, slot_cap)
+                "half": -(-total // 256) * 128, "tiny": 128,
+                "mid_span": chip_smoke.mid_span_cap(spans[1], spans[3])}[cap]
+    placed = check_grouped(spans, slot_cap, t)
     # a 128-slot cap keeps one group's chunk, whose tiles the first 128
     # pairs in triangle order may all miss
     assert placed > 0 or cap == "tiny"
+
+
+@pytest.mark.parametrize("slot_cap", [128, 4096, (1 << 17) - 128])
+def test_bin_sort_grouped_kernel_one_tile(cuda, slot_cap):
+    """2^17 - 1 triangles, every pair in one tile: one bin of 131,071
+    ranks, cut at a triangle's first pair (each span is one tile)."""
+    t = (1 << 17) - 1
+    spans = chip_smoke.one_tile_spans(t, 32, 64, cuda)[:6]
+    placed = check_grouped(spans, slot_cap, t)
+    assert 0 < placed <= slot_cap
 
 
 @pytest.mark.parametrize("n_ops", vpu_cal.N_OPS)
@@ -375,7 +412,7 @@ def test_vpu_cal_kernel_matches_plain(cuda, n_ops):
     assert torch.equal(vpu_cal.run(x, n_ops), vpu_cal.run(x, n_ops, "torch"))
 
 
-@pytest.mark.parametrize("reps", [0, 2, 5])
+@pytest.mark.parametrize("reps", [0, 2, 5, 128, 129])
 @pytest.mark.parametrize("name", epi_prims.ALL_PRIMS)
 def test_epi_prims_kernel_matches_plain(cuda, name, reps):
     x, smat = epi_prims.make_input(cuda)
@@ -384,13 +421,26 @@ def test_epi_prims_kernel_matches_plain(cuda, name, reps):
     again = epi_prims.run(name, reps, x, smat)
     want = epi_prims.run_plain(name, reps, x, smat)
     torch.cuda.synchronize()
-    assert epi_prims.run.launches == before + 2
+    assert epi_prims.run.launches == before + 2 * (reps > 0)
     assert torch.equal(got, again)
-    if name in epi_prims.ELEMENT_PRIMS or reps == 0:
+    exact = name in epi_prims.ELEMENT_PRIMS
+    if exact or reps == 0:
         assert torch.equal(got, want)
-    else:
+    elif reps <= 5:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=2e-6, atol=0)
+    # every replica sees the same tile, so R replicas are R f32 adds of the
+    # one-replica value on each side (R x 2^-24 apart at most when the two
+    # one-replica values differ): the kernel's grid must not change a bit
+    for run, value in ((epi_prims.run, got), (epi_prims.run_plain, want)):
+        one = np.float32(run(name, 1, x, smat).item())
+        fold = np.float32(0.0)
+        for _ in range(reps):
+            fold = np.float32(fold + one)
+        assert value.item() == fold
+    one_k = epi_prims.run(name, 1, x, smat).item()
+    one_p = epi_prims.run_plain(name, 1, x, smat).item()
+    assert one_k == one_p if exact else abs(one_k - one_p) <= 2e-6 * abs(one_p)
 
 
 def test_epi_prims_refuses_too_much_shared_memory(cuda):

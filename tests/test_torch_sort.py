@@ -156,14 +156,19 @@ def test_bin_pairs_sorts_on_the_key_width(n_tris, ntx, nty):
         assert torch.equal(a, b)
 
 
-def test_compose_groups_sorts_on_the_packed_key_width():
+def test_compose_groups_sorts_on_the_packed_key_width(monkeypatch):
+    """The plain composition sorts the 31-bit packed tile keys, the width
+    the CUDA path hands B2 (the card test records that call)."""
     seen = []
 
     def recording_sort(keys, bits):
-        seen.append(bits)
+        seen.append((bits, int(keys.max())))
         return sort_i32_plain(keys, bits)
 
+    monkeypatch.setattr(binsort_grouped, "sort_i32_plain", recording_sort)
     counts = torch.from_numpy(np.random.RandomState(0).randint(
         0, 40, 64).astype(np.int32))
-    binsort_grouped.compose_groups(counts, 16, 8, sort=recording_sort)
-    assert seen == [binsort_grouped.TRI_BITS + binsort_grouped.TILE_BITS]
+    binsort_grouped.compose_groups(counts, 16, 8)
+    [(bits, top)] = seen
+    assert bits == binsort_grouped.TRI_BITS + binsort_grouped.TILE_BITS == 31
+    assert top < 1 << bits

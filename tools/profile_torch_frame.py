@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
         [--size 1024] [--frames 20] [--out DIR] [--sweep 1,2,4,8] [--b5]
-        [--binning] [--raster [SOURCE.cu ...]] [--rounds 4]
+        [--binning] [--raster [SOURCE.cu ...]] [--rounds 4] [--p1 [PRIM ...]]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
@@ -15,8 +15,16 @@ the number of kernel launches, and the kernels ranked by device time.
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
-B5's wrapper on the scene's spans (group 16, sub 8, ample slot_cap);
-``--binning`` traces ``--frames`` calls of each binning route on the
+B5's wrapper on the scene's spans (group 16, sub 8) at chip_smoke.py's
+ample and undersized slot_caps, and prints the wrapper's and the plain
+version's CUDA-event ms a call; ``--p1`` prints, for each primitive of
+P1 (default all 15), device ms and device operations a call
+(``measure.profile_calls``) at 128 and 256 replicas, µs per replica from
+their difference, and the event-timed slope of ``probes.epi_prims.measure``,
+then traces epi_cur6 x 128 by kernel. ``--b5`` and ``--p1`` use only the
+wrappers' public calls, so the same command runs in a ``git archive`` copy
+of the parent commit (with this file and ``measure.py`` copied in) to
+compare the two in turns; ``--binning`` traces ``--frames`` calls of each binning route on the
 scene's lambert_u8 spans (``binsort.bin_sort``, and ``binsort.bin_pairs``
 where the pair key fits in 31 bits): device operations and device ms a
 call. ``--raster`` times kernel B1 (``raster_tiles``) on the lambert_u8
@@ -152,6 +160,45 @@ def raster_ab(sources, rounds):
         raster._lib = repo_lib
 
 
+def b5(model, size, frames, out):
+    """B5's wrapper at chip_smoke.py's ample and undersized caps."""
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.ops import binsort_grouped as bg
+
+    spans = chip_smoke.frame_setup(model, "lambert_u8", size)[1]
+    total, spans = spans[-1], spans[:6]
+    demand = int(bg.bin_sort_grouped_plain(*spans, 1 << 16, 16, 8)[6])
+    for tag, cap in (("ample", min(demand, (1 << 17) - 128)),
+                     ("undersized", 128 * (total // 256))):
+        def call(cap=cap):
+            return bg.bin_sort_grouped(*spans, cap, 16, 8)
+
+        trace(f"b5_{tag}_{size}", call, frames, 1, out)
+        print(json.dumps({"b5": tag, "slot_cap": cap, "pairs": total,
+                          "event_ms": cuda_time_ms(call, 50),
+                          "plain_event_ms": cuda_time_ms(
+                              lambda cap=cap: bg.bin_sort_grouped_plain(
+                                  *spans, cap, 16, 8), 20)}))
+
+
+def p1(prims, frames, out):
+    """P1's device ms a call at 128 and 256 replicas, for each primitive."""
+    from cython3dmodelrenderer_tpu_torch.measure import profile_calls
+    from cython3dmodelrenderer_tpu_torch.probes import epi_prims
+
+    x, smat = epi_prims.make_input("cuda")
+    for name in prims or epi_prims.ALL_PRIMS:
+        dev = {r: profile_calls(lambda r=r: epi_prims.run(name, r, x, smat),
+                                frames) for r in (128, 256)}
+        slope, walls = epi_prims.measure(name, x, smat)
+        print(json.dumps({
+            "p1": name, "device_ms_ops": {str(r): d for r, d in dev.items()},
+            "device_us_per_replica": (dev[256][0] - dev[128][0]) / 128 * 1e3,
+            "event_us_per_replica": slope, "event_walls_ms": walls}))
+    trace("p1_epi_cur6_x128", lambda: epi_prims.run("epi_cur6", 128, x, smat),
+          frames, 1, out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
@@ -165,10 +212,15 @@ def main():
     ap.add_argument("--binning", action="store_true")
     ap.add_argument("--raster", nargs="*", metavar="SOURCE.cu")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--p1", nargs="*", metavar="PRIM")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
     os.makedirs(args.out, exist_ok=True)
+    if args.p1 is not None:
+        print(smi("name,power.limit"))
+        p1(args.p1, args.frames, args.out)
+        return
     if args.raster is not None:
         print(smi("name,power.limit"))
         raster_ab(args.raster, args.rounds)
@@ -193,13 +245,7 @@ def main():
                   args.frames, 1, args.out)
         return
     if args.b5:
-        from cython3dmodelrenderer_tpu_torch.ops import binsort_grouped as bg
-
-        chip_smoke.SIZE = args.size
-        spans = chip_smoke.frame_setup(model, "lambert_u8", args.size)[1][:6]
-        cap = int(bg.bin_sort_grouped_plain(*spans, 1 << 16, 16, 8)[6])
-        trace(f"b5_{tag}", lambda: bg.bin_sort_grouped(*spans, cap, 16, 8),
-              args.frames, 1, args.out)
+        b5(model, args.size, args.frames, args.out)
         return
     for name, illum in (("guro", pt.GuroIllumination([0, 0, 1])),
                         ("none", pt.NoIllumination())):
