@@ -90,9 +90,28 @@ Phases (one line each; any failure exits nonzero):
              rtol 2e-6 + R x 2^-23 (the rest); equal to itself on a second
              run; torch.matmul beside segsum / segsum6 as a yardstick;
              P1 epi_cur6 x 128 and P2 n_ops 512 in device ms and device
-             operations a call.
+             operations a call;
+10. surface — the Renderer surface beyond the batched frame, on the card:
+             the "ratio" backend (ops/raster_ref.py) at 1024², Guro and
+             None, on igor_sphere and sphere16k, within
+             test_golden_standalone's bounds of the kernel frame (z
+             mismatch fraction printed), and at 512² bit-equal to the
+             same render on CPU tensors and to itself; render_turntable
+             over sphere16k's 8 sweep poses, each view bit-equal to
+             render_view of its posed arrays; all igor_sphere triangles
+             at 1024² through compute_triangle_statistics on CUDA
+             Buffers against the ratio frame; a custom IlluminationDrawer
+             through Renderer.render on the cuda backend (B1 launched)
+             equal to cast_u8(drawer.apply(...)) of snapshot_buffers() and
+             to the plain path; the LineBresenham wireframe of sphere16k
+             at 1024² (edges and vertices) bit-equal to fill_all on CPU
+             tensors, and a recording LineDrawer seeing 3·T cube edges;
+             ms/frame (10 warm frames, CUDA events), ms/view and ms per
+             triangle, printed as the ``surface`` JSON line.
 
-The next-to-last lines are the nvidia-smi name/power-limit line and one
+The ``surface`` JSON line carries phase 10's times beside the card's
+nvidia-smi name and power limit. The next-to-last lines are the nvidia-smi
+name/power-limit line and one
 JSON object with the kernels' launch counts, errors, times and bounds
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
 operations this run's inputs need over 33.5 T instructions/s; P1's
@@ -140,6 +159,8 @@ P1_RTOL = 2e-6           # summed primitives: up to 2 x 65,536 floats
 # running sum, R x 2^-24 relative on each side
 P1_FOLD_ULP = 2.0 ** -23
 P1_TIMED = ("epi_cur6", 128)
+SURFACE_WARM_FRAMES = 10
+SURFACE_CPU_SIZE = 512             # the ratio frame held to a CPU render
 
 
 class SmokeFailure(Exception):
@@ -1433,6 +1454,295 @@ def phase_probes():
         bounds, probes, device
 
 
+def check_bounds(tag, img, ref):
+    """``test_golden_standalone``'s bounds (tests/test_renderer.py:315-325)
+    of ``img`` against ``ref``; returns (IoU, MAE, >20 fraction)."""
+    ours, gold = img.float(), ref.float()
+    ours_mask, gold_mask = ours.sum(-1) > 15, gold.sum(-1) > 15
+    iou = float((ours_mask & gold_mask).sum() / (ours_mask | gold_mask).sum())
+    both = ours_mask & gold_mask
+    mae = float((ours[both] - gold[both]).abs().mean())
+    big = float(((ours - gold).abs().amax(-1) > 20).float().mean())
+    require(iou > 0.998 and mae < 0.5 and big < 0.002,
+            f"{tag}: IoU {iou}, MAE {mae}, >20 fraction {big}")
+    return iou, mae, big
+
+
+def on_card(*tensors):
+    return all(t.device.type == "cuda" for t in tensors)
+
+
+def ratio_work(model):
+    """What a ratio frame of ``model`` at SIZE² evaluates: the bbox bucket,
+    JAX's scan steps and window fragments (steps x chunk x bbox²), and the
+    port's fragments (each bbox cut at the window)."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.fillers import ratio_chunk
+    from cython3dmodelrenderer_tpu_torch.ops import raster_ref
+    from cython3dmodelrenderer_tpu_torch.ops.projection import (
+        project_to_screen, visibility_masks)
+
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+    deg, back = visibility_masks(tv, tn)
+    ts, active = project_to_screen(tv, config), ~deg & ~back
+    bbox = raster_ref.required_bbox_size(ts, active, config)
+    chunk = ratio_chunk(bbox)
+    steps = -(-model.n_triangles() // chunk)
+    n_frag = raster_ref.window_fragments(ts, active, config, bbox)[3]
+    return {"bbox": bbox, "chunk": chunk, "jax_steps": steps,
+            "jax_window_fragments": steps * chunk * bbox * bbox,
+            "port_fragments": int(n_frag.sum())}
+
+
+def surface_ratio(scenes, results, light):
+    """The "ratio" backend at 1024² against the kernel frames, its ms/frame,
+    and at 512² against the same render on CPU tensors."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import AdvancedPixelBufferFiller
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+
+    out = {}
+    for name in ("igor_sphere", "sphere16k"):
+        out[f"{name}@{SIZE}"] = ratio_work(scenes[name])
+        say("surface", f"ratio {name}@{SIZE}: {out[f'{name}@{SIZE}']}")
+        for iname in ("guro", "none"):
+            kernel_renderer, kernel_img, _img2, kernel_z = results[(name, iname)]
+            renderer = make_renderer(kernel_renderer.illumination, "ratio")
+            img = seeded_render(renderer, scenes[name])
+            again = seeded_render(renderer, scenes[name])
+            z = renderer.z_buffer.array
+            require(torch.equal(img, again),
+                    f"ratio {name}/{iname}: renders differ")
+            require(on_card(img, z), f"ratio {name}/{iname}: left the card")
+            iou, mae, big = check_bounds(f"ratio {name}/{iname}", img,
+                                         kernel_img)
+            ms = cuda_time_ms(lambda: renderer.render(scenes[name]),
+                              SURFACE_WARM_FRAMES)
+            # z mismatch as tests_tpu/test_tpu_parity.py:42-43 counts it
+            row = out[f"{name}/{iname}@{SIZE}"] = {
+                "ms_per_frame": ms, "iou": iou, "mae": mae,
+                "frac_over_20": big,
+                "z_mismatch": float(((z - kernel_z).abs() > 1e-3).float().mean()),
+                "z_bits_differ": float((z != kernel_z).float().mean()),
+                "pixels_differing": int((img != kernel_img).any(-1).sum())}
+            say("surface", f"ratio {name} {iname}@{SIZE}: {ms:.4f} ms/frame "
+                f"(median of {SURFACE_WARM_FRAMES} warm, CUDA events); against "
+                f"the kernel frame IoU {iou:.6f}, MAE {mae:.6f}, >20 {big}, z "
+                f"mismatch (|dz| > 1e-3) {row['z_mismatch']}, z bits differ "
+                f"at {row['z_bits_differ']:.4f} of pixels (plane vs ratio "
+                f"form), {row['pixels_differing']} pixels differ")
+    size = SURFACE_CPU_SIZE
+    model = scenes["igor_sphere"]
+    args = (model.vertices_by_triangles, model.normals_by_triangles,
+            seeded_colors(model))
+    frames = []
+    for device, tensors in ((DEVICE, args), (DEVICE, args),
+                            ("cpu", [t.cpu() for t in args])):
+        filler = AdvancedPixelBufferFiller(size, size, fov=FOV, device=device,
+                                           backend="ratio")
+        filler.render_arrays(*tensors, post="lambert_u8", light=light)
+        snap = filler.snapshot_buffers()
+        require(device == "cpu" or on_card(*snap),
+                f"ratio igor_sphere@{size}: left the card")
+        frames.append([t.cpu() for t in snap])
+    for k, part in enumerate(("color", "z", "normal", "image")):
+        require(all(same_bits(frames[0][k], f[k]) for f in frames[1:]),
+                f"ratio igor_sphere@{size} {part}: the card's render != the "
+                "CPU render (or a second call)")
+    say("surface", f"ratio igor_sphere@{size} lambert_u8: colour, z, normal "
+        "and image bit-equal to the same render on CPU tensors and to a "
+        "second call")
+    return out
+
+
+def surface_turntable(tt_model, colors):
+    """``multiview.render_turntable`` over the sweep phase's 8 poses of
+    sphere16k; every view against ``render_view`` of its posed arrays."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    tv, tn = tt_model.vertices_by_triangles, tt_model.normals_by_triangles
+    angles = sweep_angles()
+
+    def turntable():
+        return multiview.render_turntable(tv, tn, colors, angles, config,
+                                          post_shift=SWEEP_SHIFT)
+
+    views = turntable()
+    require(views.shape == (SWEEP_VIEWS, SIZE, SIZE, 3) and on_card(views),
+            f"render_turntable: {tuple(views.shape)} on {views.device}")
+    for i, angle in enumerate(angles):
+        v, n = multiview._pose_triangles(tv, tn, angle, SWEEP_SHIFT)
+        single = multiview.render_view(v, n, colors, config)[0]
+        require(same_bits(views[i], single),
+                f"render_turntable view {i}: != render_view of its pose")
+    lit = float((views.amax(-1) > 0).float().mean())
+    require(lit > 0.05 and bool(torch.isfinite(views).all()),
+            f"render_turntable: {lit} of pixels lit")
+    ms = cuda_time_ms(turntable, 2, warmup=1) / SWEEP_VIEWS
+    say("surface", f"render_turntable sphere16k@{SIZE}: {SWEEP_VIEWS} views "
+        f"each bit-equal to render_view of its posed arrays, {lit:.4f} of "
+        f"pixels lit, {ms:.4f} ms/view (CUDA events, median of 2 sweeps / "
+        f"{SWEEP_VIEWS})")
+    return {"ms_per_view": ms, "views": SWEEP_VIEWS}
+
+
+def surface_per_triangle(model):
+    """Every igor_sphere triangle, as host arrays, through
+    ``compute_triangle_statistics`` on CUDA Buffers, against the ratio
+    backend's frame of the model."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import (AdvancedPixelBufferFiller,
+                                                 Buffer)
+
+    tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+    tc = seeded_colors(model)
+    filler = AdvancedPixelBufferFiller(SIZE, SIZE, fov=FOV, device=DEVICE,
+                                       backend="ratio")
+    filler.render_arrays(tv, tn, tc)
+    ref_color, ref_z, _n = filler.snapshot_buffers()[:3]
+    bufs = (Buffer(SIZE, SIZE, dim=3, dtype="float32", device=DEVICE),
+            Buffer(SIZE, SIZE, dim=1, dtype="float32", init_val=1e6,
+                   device=DEVICE),
+            Buffer(SIZE, SIZE, dim=3, dtype="float32", device=DEVICE))
+    n = model.n_triangles()
+    # host arrays, as the Renderer's triangle iterator yields them
+    tris, cols, norms = (t.cpu().numpy() for t in (tv, tc, tn))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        filler.compute_triangle_statistics(tris[i], cols[i], norms[i], *bufs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    color, z = bufs[0].array, bufs[1].array
+    require(on_card(color, z, bufs[2].array),
+            "compute_triangle_statistics: buffers left the card")
+    z_bits = same_bits(z, ref_z)
+    z_err = float((z - ref_z).abs().max())
+    require(z_bits or z_err <= 1e-5,
+            f"compute_triangle_statistics z: {z_err} from the ratio frame")
+    c_err = float((color - ref_color).abs().max())
+    require(c_err <= 0.05, f"compute_triangle_statistics colour: {c_err} from "
+            "the ratio frame")
+    covered = float((z < 1.0).float().mean())
+    require(covered > 0.05, f"compute_triangle_statistics: {covered} covered")
+    say("surface", f"compute_triangle_statistics igor_sphere@{SIZE}: {n} "
+        f"triangles on CUDA Buffers, {ms:.4f} ms per triangle (wall); z "
+        f"{'bit-equal to' if z_bits else f'within {z_err} of'} the ratio "
+        f"frame's, colour within {c_err} (bit-equal: "
+        f"{same_bits(color, ref_color)}), {covered:.4f} of pixels covered")
+    return {"ms_per_triangle": ms, "triangles": n, "z_bit_equal": z_bits,
+            "z_max_abs_err": z_err, "color_max_abs_err": c_err}
+
+
+def surface_custom_drawer(model):
+    """A custom drawer through ``Renderer.render`` on the cuda backend:
+    B1 launches, and the frame is ``cast_u8(apply(...))`` of the filler's
+    snapshot and the plain path's frame."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import IlluminationDrawer
+    from cython3dmodelrenderer_tpu_torch.ops.illumination import cast_u8
+    from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
+
+    class Tint(IlluminationDrawer):
+        def apply(self, color, n_buffer):
+            return color * 0.5 + n_buffer[..., 2:3].abs() * 100.0
+
+    renderer = make_renderer(Tint(), "cuda")
+    raster_tiles.launches = 0
+    img = seeded_render(renderer, model)
+    torch.cuda.synchronize()
+    launches = raster_tiles.launches
+    require(launches > 0, "custom drawer: B1 was not launched")
+    color, z, normals, _img = renderer.pixel_buffer_filler.snapshot_buffers()
+    require(torch.equal(img, cast_u8(Tint().apply(color, normals)))
+            and same_bits(renderer.z_buffer.array, z),
+            "custom drawer: frame != cast_u8(apply(snapshot_buffers()))")
+    plain = seeded_render(make_renderer(Tint(), "torch"), model)
+    require(torch.equal(img, plain), "custom drawer: kernel frame != plain")
+    lit = float((img.amax(-1) > 0).float().mean())
+    require(lit > 0.05 and on_card(img), f"custom drawer: {lit} lit")
+    say("surface", f"custom IlluminationDrawer igor_sphere@{SIZE} on the cuda "
+        f"backend: B1 launched {launches}x, == cast_u8(apply(snapshot)), == "
+        f"the plain path, {lit:.4f} of pixels lit")
+    return {"raster_launches": launches}
+
+
+def surface_wireframe():
+    """The LineBresenham wireframe of sphere16k at 1024² against the same
+    lines drawn on CPU tensors, and a recording LineDrawer on the cube."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import (EdgeOnlyPixelBufferFiller,
+                                                 LineBresenham, LineDrawer,
+                                                 Model, NoIllumination,
+                                                 Renderer, SimpleIterator)
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+
+    out = {}
+    for kind, draw_edges in (("edges", True), ("vertices", False)):
+        model = posed(Model(*displaced_sphere(TRI_SPHERE_SEGMENTS,
+                                              TRI_SPHERE_RINGS), device=DEVICE),
+                      True)
+        filler = EdgeOnlyPixelBufferFiller(LineBresenham(), [255, 255, 255],
+                                           draw_edges=draw_edges)
+        renderer = Renderer(filler, NoIllumination(), SimpleIterator, SIZE,
+                            SIZE, device=DEVICE)
+        img = renderer.render(model, normalize_model=True).array.clone()
+        tv = model.vertices_by_triangles
+        cpu = filler.fill_all(tv.cpu(), torch.zeros(tv.shape),
+                              torch.zeros((SIZE, SIZE, 3))).to(torch.uint8)
+        require(on_card(img) and torch.equal(img.cpu(), cpu),
+                f"wireframe {kind}: the card's frame != fill_all on the CPU")
+        lit = int((img.amax(-1) > 0).sum())
+        require(lit > 0 and int(img.max()) == 255, f"wireframe {kind}: {lit}")
+
+        ms = cuda_time_ms(lambda: renderer.render(model), SURFACE_WARM_FRAMES)
+        out[kind] = {"ms_per_frame": ms, "lit_pixels": lit}
+        say("surface", f"wireframe sphere16k@{SIZE} {kind}: == fill_all on CPU "
+            f"tensors, {lit} pixels lit, {ms:.4f} ms/frame (median of "
+            f"{SURFACE_WARM_FRAMES} warm, CUDA events)")
+
+    class Recording(LineDrawer):
+        def __init__(self):
+            self.calls = 0
+
+        def draw_line(self, p1, p2, image, color):
+            self.calls += 1
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cube = Model.read_model(os.path.join(root, "assets", "cube.obj"),
+                            device=DEVICE)
+    drawer = Recording()
+    Renderer(EdgeOnlyPixelBufferFiller(drawer, [255, 255, 255]),
+             NoIllumination(), SimpleIterator, 64, 64,
+             device=DEVICE).render(cube, normalize_model=True)
+    require(drawer.calls == 3 * cube.n_triangles(),
+            f"recording LineDrawer: {drawer.calls} edges, want "
+            f"{3 * cube.n_triangles()}")
+    say("surface", f"recording LineDrawer: {drawer.calls} edges of "
+        f"{cube.n_triangles()} cube triangles")
+    return out
+
+
+def phase_surface(scenes, results, tt_model, colors, light, smi):
+    """Phase 10; returns the ``surface`` line's object."""
+    surface = {"ratio": surface_ratio(scenes, results, light),
+               "turntable": surface_turntable(tt_model, colors),
+               "per_triangle": surface_per_triangle(scenes["igor_sphere"]),
+               "custom_drawer": surface_custom_drawer(scenes["igor_sphere"]),
+               "wireframe": surface_wireframe(), "smi": smi}
+    return surface
+
+
 def main():
     try:
         import torch
@@ -1469,6 +1779,8 @@ def main():
         b5_launches, b5_err, b5_ms, b5_bound = phase_b5(scenes)
         (probe_launches, probe_err, probe_ms, probe_bounds, probes,
          probe_dev) = phase_probes()
+        surface = phase_surface(scenes, results, tt_model, sweep_colors, light,
+                                smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1523,6 +1835,7 @@ def main():
     ]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
+    print(json.dumps({"surface": surface}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "torch", "ratio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,8 +19,10 @@ class RenderConfig:
     field of view in degrees, ``z_near``/``z_far`` the clip range mapped to
     depth [0, 1]. ``backend``: ``"cuda"`` runs the hand-written kernels
     (tensors must live on a CUDA device), ``"torch"`` runs their plain
-    PyTorch versions on any device, ``"auto"`` picks ``"cuda"`` for CUDA
-    tensors and ``"torch"`` otherwise.
+    PyTorch versions on any device, ``"ratio"`` runs the ratio-form
+    rasterizer (``ops/raster_ref.py``, the JAX ``"jnp"`` backend) on any
+    device, and ``"auto"`` picks ``"cuda"`` for CUDA tensors and ``"torch"``
+    otherwise (never ``"ratio"``).
     """
 
     height: int = 512

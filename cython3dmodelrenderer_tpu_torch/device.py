@@ -29,11 +29,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def resolve_backend(backend: str, device: torch.device) -> str:
-    """Map a config backend onto ``"cuda"`` (kernels) or ``"torch"`` (plain)."""
+    """Map a config backend onto ``"cuda"`` (kernels), ``"torch"`` (their
+    plain versions) or ``"ratio"`` (the ratio-form rasterizer, any
+    device, only by name)."""
     if backend == "auto":
         return "cuda" if device.type == "cuda" else "torch"
     if backend == "cuda" and device.type != "cuda":
         raise ValueError("backend='cuda' needs a CUDA device")
-    if backend not in ("cuda", "torch"):
+    if backend not in ("cuda", "torch", "ratio"):
         raise ValueError(f"unknown backend {backend!r}")
     return backend

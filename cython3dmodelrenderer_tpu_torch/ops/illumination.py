@@ -56,12 +56,25 @@ def cast_u8(color: torch.Tensor) -> torch.Tensor:
 
 class IlluminationDrawer:
     """Shading pass over (color, normal) G-buffers: ``apply`` is the tensor
-    op. (The reference's ``draw_illumination`` over ``Buffer`` objects
-    serves the per-triangle path, ROADMAP queue A item 6.)"""
+    op; ``draw_illumination`` the reference's wrapper over ``Buffer``
+    objects (``illumination/illumination_drawer.py:5-13``)."""
 
     @abstractmethod
     def apply(self, color: torch.Tensor, n_buffer: torch.Tensor) -> torch.Tensor:
         ...
+
+    def draw_illumination(self, color_buffer, n_buffer):
+        """Shade a colour ``Buffer`` in place by ``n_buffer`` (py reference
+        form), or, given raw arrays, return the shaded float32 array (cy
+        reference form)."""
+        from ..models.buffer import Buffer
+
+        if isinstance(color_buffer, Buffer):
+            color_buffer.array = self.apply(
+                color_buffer.array.to(torch.float32), n_buffer.array)
+            return None
+        return self.apply(torch.as_tensor(color_buffer, dtype=torch.float32),
+                          torch.as_tensor(n_buffer))
 
 
 class NoIllumination(IlluminationDrawer):

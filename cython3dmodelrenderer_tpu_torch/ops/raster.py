@@ -358,7 +358,8 @@ def route_bins(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
 def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  tri_colors: torch.Tensor, config: RenderConfig,
                  post: str = "none", light=None, gbuffer: bool = False,
-                 backend: str = "torch", group: int = 1
+                 backend: str = "torch", group: int = 1,
+                 stats: Optional[dict] = None
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor], int]:
     """One frame: cull + project → plane rows → bins → raster (B1).
 
@@ -373,7 +374,9 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     through their plain versions. ``group`` routes the bins
     (``route_bins``); both routes give the same bins, so the same pixels.
     Returns ``(gbuf, image, n_pairs)``; the frame reads one scalar back to
-    the host (its pair total, which sizes the bins exactly).
+    the host (its pair total, which sizes the bins exactly). A ``stats``
+    dict receives ``"active_tiles"``, the count of nonempty tiles as a
+    device scalar (no host read).
     """
     if post not in POSTS:
         raise ValueError(f"unknown post {post!r}")
@@ -389,6 +392,9 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
         dev = tri_verts.device
         img = (torch.zeros((h, w, 3), dtype=torch.uint8, device=dev)
                if want_img else None)
+        if stats is not None:
+            stats["active_tiles"] = torch.zeros((), dtype=torch.int64,
+                                                device=dev)
         return (background(h, w, config.z_init, dev) if emit_gbuf else None,
                 img, 0)
     degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
@@ -405,6 +411,8 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
         normals=None if n_attrs == 3 else tri_norms)
     total = int(counts.sum())                   # the frame's one host read
     bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
+    if stats is not None:
+        stats["active_tiles"] = (bins[2] > 0).sum()
     gbuf, img = raster(rows, *bins, ntx, nty, h, w, n_attrs, config.z_init,
                        light=light if post == "lambert_u8" else None,
                        gbuffer=emit_gbuf, image=want_img)

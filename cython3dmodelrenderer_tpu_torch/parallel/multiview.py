@@ -4,7 +4,9 @@ Counterpart of ``cython3dmodelrenderer_tpu/parallel/multiview.py`` for the
 sweep path: ``render_sequence_pallas`` (``:534``) and
 ``render_turntable_pallas`` (``:352``) through ``_run_sweep`` (``:308``),
 with ``turntable_angles``, ``_pose_triangles``, ``_norm_light`` and the
-capacity helpers.
+capacity helpers; and for the ratio-form views: ``render_view`` (``:41``)
+and ``render_turntable`` (``:80``), which JAX vmaps over the poses and the
+port renders one pose after another through ``ops/raster_ref.py``.
 
 A batch of ``view_batch`` consecutive poses renders as one stacked frame
 (``_render_view_batch``, the counterpart of ``_batched_view_spans`` +
@@ -37,11 +39,9 @@ never ``matmul``/``einsum``. The rotation matrix is built on the host by
 ``rotation_matrix`` (looked up through this module), so posed geometry is
 the same on the CPU and on the card.
 
-Not ported here: ``render_view`` and ``render_turntable`` (the jnp
-backend) need the ratio-form torch oracle (ROADMAP queue A item 4);
-``render_turntable_sharded``, ``render_triangle_sharded`` and
-``triangle_shard_capacity`` are multi-GPU work (item 12). They raise
-``NotImplementedError``.
+Not ported here: ``render_turntable_sharded``, ``render_triangle_sharded``
+and ``triangle_shard_capacity`` are multi-GPU work (ROADMAP queue A item
+12). They raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..ops import binning, raster
+from ..ops import binning, raster, raster_ref
 from ..ops.binsort import expand_pairs, grouped_limits_ok
 from ..ops.illumination import lambert_shade
 from ..ops.projection import project_to_screen, visibility_masks
@@ -304,14 +304,38 @@ def turntable_capacity(tri_verts, tri_norms, config: RenderConfig,
                              view_batch=view_batch)
 
 
-def render_view(*args, **kwargs):
-    raise NotImplementedError("the jnp-backend views need the ratio-form "
-                              "torch oracle, ROADMAP queue A item 4")
+def render_view(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
+                tri_colors: torch.Tensor, config: RenderConfig,
+                bbox_size: int = 64, chunk: int = 512,
+                light_direction=(0.0, 0.0, 1.0)):
+    """Project → rasterize (ratio form) → shade one view, on the tensors'
+    device. Returns (shaded color, z, normal) float32 (JAX
+    ``multiview.py:41-54``); ``bbox_size`` and ``chunk`` as in
+    ``raster_ref.rasterize``."""
+    degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
+    color, z, normal = raster_ref.rasterize(
+        project_to_screen(tri_verts, config), tri_colors, tri_norms,
+        ~degenerate & ~backfacing, config, bbox_size=bbox_size, chunk=chunk)
+    return lambert_shade(color, normal, _norm_light(light_direction)), z, normal
 
 
-def render_turntable(*args, **kwargs):
-    raise NotImplementedError("the jnp-backend turntable needs the ratio-form "
-                              "torch oracle, ROADMAP queue A item 4")
+def render_turntable(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
+                     tri_colors: torch.Tensor, angles, config: RenderConfig,
+                     post_shift=(0.0, 0.0, 1.0), bbox_size: int = 64,
+                     chunk: int = 512) -> torch.Tensor:
+    """(N, H, W, 3) shaded float32 images: view i is ``render_view`` of the
+    model posed by ``angles[i]`` (Euler XYZ degrees) and shifted by
+    ``post_shift`` (JAX ``multiview.py:80-98``). ``tri_verts`` should be
+    centred (``fit_model`` without its final z shift)."""
+    views = []
+    for angle3 in _host_f32(angles).reshape(-1, 3):
+        v, n = _pose_triangles(tri_verts, tri_norms, angle3, post_shift)
+        views.append(render_view(v, n, tri_colors, config,
+                                 bbox_size=bbox_size, chunk=chunk)[0])
+    if not views:
+        return torch.zeros((0, config.height, config.width, 3),
+                           dtype=torch.float32, device=tri_verts.device)
+    return torch.stack(views)
 
 
 def render_turntable_sharded(*args, **kwargs):

@@ -6,13 +6,24 @@ iterator_type, image_height, image_width, use_tqdm)`` whose
 ``.render(model, normalize_model, random_colors)`` returns the colour
 ``Buffer``, plus ``.reset_buffers()``.
 
-The batched path only: with ``GuroIllumination`` a frame is the
-``"lambert_u8"`` post, with ``NoIllumination`` the ``"u8"`` post, shaded and
-quantized inside the raster kernel; the z and normal buffers are lazy and
-re-render with G-buffer output on first access. Untextured models get
-per-triangle colours from the renderer's ``torch.Generator``.
-``render_sequence`` renders a pose sequence through the multi-view sweep
-(``parallel.multiview``).
+The filler's type picks the path, as in JAX (``renderer.py:75-80``):
+
+* ``AdvancedPixelBufferFiller`` — the batched frame. With
+  ``GuroIllumination`` it is the ``"lambert_u8"`` post, with
+  ``NoIllumination`` the ``"u8"`` post; the z and normal buffers are lazy
+  and re-render with G-buffer output on first access. Any other drawer
+  gets the frame's G-buffers (``snapshot_buffers``) and the colour buffer
+  is ``cast_u8(drawer.apply(color, normals))``.
+* ``EdgeOnlyPixelBufferFiller`` — the batched wireframe (``fill_all``);
+  a line drawer that is not exactly ``LineBresenham`` must see every edge,
+  so it takes the per-triangle loop.
+* any other filler — the reference's per-triangle loop
+  (``compute_triangle_statistics`` into the Renderer's buffers), then
+  ``draw_illumination``.
+
+Untextured models get per-triangle colours from the renderer's
+``torch.Generator``. ``render_sequence`` renders a pose sequence through the
+multi-view sweep (``parallel.multiview``).
 """
 from __future__ import annotations
 
@@ -22,10 +33,13 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .fillers import AdvancedPixelBufferFiller, PixelBufferFiller
+from .fillers import (AdvancedPixelBufferFiller, EdgeOnlyPixelBufferFiller,
+                      PixelBufferFiller)
 from .models.buffer import Buffer
 from .models.model import Model
-from .ops.illumination import GuroIllumination, IlluminationDrawer, NoIllumination
+from .ops.illumination import (GuroIllumination, IlluminationDrawer,
+                               NoIllumination, cast_u8)
+from .ops.wireframe import LineBresenham
 
 
 class Renderer:
@@ -38,7 +52,7 @@ class Renderer:
         """``device`` defaults to the filler's; ``generator`` (a CPU
         ``torch.Generator``) draws the fallback colours of untextured
         models — a fresh default-seeded one when omitted. ``use_tqdm`` is
-        accepted for API compatibility; the batched path has no loop."""
+        accepted for API compatibility and ignored (no progress bar)."""
         del use_tqdm
         self.pixel_buffer_filler = pixel_buffer_filler
         self.illumination = illumination
@@ -65,10 +79,6 @@ class Renderer:
         picks a random (else white) colour per triangle for untextured
         models (``py/renderer.py:53-55``).
         """
-        if not isinstance(self.pixel_buffer_filler, AdvancedPixelBufferFiller):
-            raise NotImplementedError(
-                "only AdvancedPixelBufferFiller is ported: wireframe is ROADMAP "
-                "queue A item 10, custom per-triangle fillers item 6")
         if normalize_model:
             image_center = (self.im_h // 2, self.im_w // 2)
             image_span = min(image_center)
@@ -76,7 +86,13 @@ class Renderer:
             model.shift(-model.get_mean_vertex()
                         + np.array([image_center[0], image_center[1],
                                     -image_span], dtype=np.float32))
-        self._render_batched(model, self._fallback_colors(model, random_colors))
+        colors_override = self._fallback_colors(model, random_colors)
+        if isinstance(self.pixel_buffer_filler, AdvancedPixelBufferFiller):
+            self._render_batched(model, colors_override)
+        elif isinstance(self.pixel_buffer_filler, EdgeOnlyPixelBufferFiller):
+            self._render_wireframe(model, colors_override)
+        else:
+            self._render_per_triangle(model, colors_override)
         return self.color_buffer
 
     def _fallback_colors(self, model: Model,
@@ -103,21 +119,62 @@ class Renderer:
 
     def _render_batched(self, model: Model,
                         colors_override: Optional[torch.Tensor]) -> None:
+        filler = self.pixel_buffer_filler
+        # exact types: a subclass may override apply()
         if type(self.illumination) is GuroIllumination:
             post, light = "lambert_u8", self.illumination.light_direction
         elif type(self.illumination) is NoIllumination:
             post, light = "u8", None
         else:
-            raise NotImplementedError(
-                "custom illumination drawers (the eager G-buffer path) are "
-                "ROADMAP queue A item 6")
-        filler = self.pixel_buffer_filler
+            # a custom drawer shades the frame's G-buffers (JAX
+            # renderer.py:124-142)
+            filler.render_model(model, order=self._order(model),
+                                colors_override=colors_override,
+                                post="none", keep_gbuffers=True)
+            color, z, normals, _img = filler.snapshot_buffers()
+            self.color_buffer.array = cast_u8(self.illumination.apply(color,
+                                                                      normals))
+            self.z_buffer.array = z
+            self.n_buffer.array = normals
+            return
         filler.render_model(model, order=self._order(model),
                             colors_override=colors_override,
                             post=post, light=light)
         self.color_buffer.array = filler.get_post_image()
         self.z_buffer.set_lazy(filler.get_z_buffer)
         self.n_buffer.set_lazy(filler.get_normals_buffer)
+
+    def _render_wireframe(self, model: Model,
+                          colors_override: Optional[torch.Tensor]) -> None:
+        """JAX ``renderer.py:157-176``: the batched wireframe over the
+        colour buffer, then the drawer's ``apply``."""
+        filler = self.pixel_buffer_filler
+        drawer = getattr(filler, "line_drawer", None)
+        if drawer is not None and type(drawer) is not LineBresenham:
+            self._render_per_triangle(model, colors_override)
+            return
+        tri_colors = model.colors_by_triangles
+        if tri_colors is None:
+            tri_colors = colors_override
+        color = filler.fill_all(model.vertices_by_triangles,
+                                tri_colors.to(torch.float32),
+                                self.color_buffer.array.to(torch.float32))
+        self.color_buffer.array = self.illumination.apply(color,
+                                                          self.n_buffer.array)
+
+    def _render_per_triangle(self, model: Model,
+                             colors_override: Optional[torch.Tensor]) -> None:
+        """The reference's per-triangle loop (``py/renderer.py:51-58``)."""
+        override = (colors_override.cpu().numpy()
+                    if colors_override is not None else None)
+        for i, (triangle, colors, normals) in enumerate(
+                self.triangle_iterator_type(model)):
+            if colors is None:
+                colors = override[i]
+            self.pixel_buffer_filler.compute_triangle_statistics(
+                triangle, colors, normals,
+                self.color_buffer, self.z_buffer, self.n_buffer)
+        self.illumination.draw_illumination(self.color_buffer, self.n_buffer)
 
     def render_sequence(self, model: Model, angles, shifts=None,
                         random_colors: bool = True, view_batch: int = 1,

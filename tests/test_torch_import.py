@@ -1,6 +1,7 @@
 """The port imports torch and numpy only: no jax, no cv2, no tqdm, and no
-CUDA initialisation on the CPU path, which a caller takes by asking for
-``device="cpu"``; with no device the entry points need the card."""
+CUDA initialisation on the CPU path (the batched frame, the ratio backend,
+the wireframe), which a caller takes by asking for ``device="cpu"``; with
+no device the entry points need the card."""
 import json
 import os
 import subprocess
@@ -18,9 +19,10 @@ from cython3dmodelrenderer_tpu_torch import measure
 from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
                                                  binsort_grouped, illumination,
                                                  projection, raster, raster_ref,
-                                                 sort, transforms)
+                                                 sort, transforms, wireframe)
 from cython3dmodelrenderer_tpu_torch.parallel import multiview
 from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
+from cython3dmodelrenderer_tpu_torch.utils import oracle
 after_import = sorted(m for m in WATCH if m in set(sys.modules) - baseline)
 # the main path on the CPU, including a mesh whose texture file is missing
 model = pt.Model.read_model(sys.argv[1], device="cpu")
@@ -31,11 +33,20 @@ r = pt.Renderer(pt.AdvancedPixelBufferFiller(32, 32, fov=45, device="cpu"),
                 pt.GuroIllumination([0, 0, 1]), pt.SimpleIterator, 32, 32)
 img = r.render(model).get_image()
 z = r.z_buffer.get_image()
+# the ratio backend and the wireframe
+r = pt.Renderer(pt.AdvancedPixelBufferFiller(32, 32, fov=45, backend="ratio",
+                                             device="cpu"),
+                pt.GuroIllumination([0, 0, 1]), pt.SimpleIterator, 32, 32)
+lit_ratio = int((r.render(model).get_image().max(-1) > 0).sum())
+w = pt.Renderer(pt.EdgeOnlyPixelBufferFiller(pt.LineBresenham(), [255] * 3),
+                pt.NoIllumination(), pt.SimpleIterator, 32, 32, device="cpu")
+lit_wire = int((w.render(model, normalize_model=True).get_image() > 0).sum())
 print(json.dumps({
     "after_import": after_import,
     "after_render": sorted(m for m in WATCH if m in set(sys.modules) - baseline),
     "cuda_initialized": torch.cuda.is_initialized(),
     "lit": int((img.max(-1) > 0).sum()), "z_min": float(z.min()),
+    "lit_ratio": lit_ratio, "lit_wire": lit_wire,
 }))
 """
 
@@ -51,6 +62,7 @@ def test_port_imports_no_jax_and_stays_on_cpu(igor_sphere_path):
     assert out["after_render"] == []          # missing texture: no cv2 either
     assert out["cuda_initialized"] is False
     assert out["lit"] > 0 and out["z_min"] < 1.0
+    assert out["lit_ratio"] > 0 and out["lit_wire"] > 0
 
 
 def test_no_jax_import_in_the_package_sources():
@@ -96,6 +108,10 @@ def test_cuda_backend_needs_a_cuda_device(igor_sphere_path, tmp_path):
         lambda: pt.AdvancedPixelBufferFiller(8, 8),
         lambda: pt.Renderer(pt.PixelBufferFiller(), pt.NoIllumination(),
                             pt.SimpleIterator, 8, 8),
+        lambda: pt.Renderer(pt.EdgeOnlyPixelBufferFiller(pt.LineBresenham(),
+                                                         [255] * 3),
+                            pt.NoIllumination(), pt.SimpleIterator, 8, 8),
+        lambda: pt.AdvancedPixelBufferFiller(8, 8, backend="ratio"),
         lambda: pt.Model.read_model(igor_sphere_path),
         lambda: pt.Model(np.eye(3, dtype=np.float32), [[0, 1, 2]]),
         lambda: pt.Model.from_state({

@@ -16,6 +16,8 @@ comparison runs with that patch.
 
 Scenes and sizes mirror ``tests/test_multiview.py`` (64², 24 triangles;
 the odd sizes 72 x 100 and 100 x 130; the 70-tile-wide over-budget frame).
+The ratio-form ``render_turntable`` / ``render_view`` (JAX's jnp views)
+are held to JAX the same way.
 """
 import os
 import sys
@@ -412,12 +414,35 @@ def test_view_batch_must_divide_and_posts():
 
 
 def test_unported_multiview_functions_raise():
-    for name, item in (("render_view", "item 4"), ("render_turntable", "item 4"),
-                       ("render_turntable_sharded", "item 12"),
-                       ("render_triangle_sharded", "item 12"),
-                       ("triangle_shard_capacity", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    for name in ("render_turntable_sharded", "render_triangle_sharded",
+                 "triangle_shard_capacity"):
+        with pytest.raises(NotImplementedError, match="item 12"):
             getattr(multiview, name)()
+
+
+def test_ratio_turntable_and_view_match_jax(jax_out, jax_rotations):
+    """``test_multiview.py:26-46``: the ratio-form turntable (JAX vmaps it
+    over the poses) and a single ``render_view``, bit-equal to JAX; every
+    turntable view equals ``render_view`` of its posed arrays."""
+    tv, tn, tc = torch_scene(*tiny_scene())
+    angles = multiview.turntable_angles(4)
+    tt = multiview.render_turntable(tv, tn, tc, angles, CONFIG, bbox_size=32,
+                                    chunk=16)
+    assert tt.shape == (4, 64, 64, 3) and float(tt.max()) > 0
+    assert_bit_equal(tt, jax_out["view/turntable"])
+    assert not torch.equal(tt[0], tt[1])
+    for i in range(4):
+        v, n = multiview._pose_triangles(tv, tn, angles[i], (0.0, 0.0, 1.0))
+        assert torch.equal(tt[i], multiview.render_view(
+            v, n, tc, CONFIG, bbox_size=32, chunk=16)[0])
+    v0, n0 = (torch.from_numpy(jax_out[f"view/pose0/{k}"]) for k in "vn")
+    for name, kwargs in (("single", dict(bbox_size=32, chunk=16)),
+                         ("tilted", dict(light_direction=LIGHTS["tilted"]))):
+        got = multiview.render_view(v0, n0, tc, CONFIG, **kwargs)
+        for part, a in zip(("color", "z", "normal"), got):
+            assert_bit_equal(a, jax_out[f"view/{name}/{part}"])
+    assert multiview.render_turntable(tv, tn, tc, angles[:0], CONFIG).shape == (
+        0, 64, 64, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +546,17 @@ def _jax_main(job_path, out_path):
     wcap = mv.sequence_capacity(wtv, wtn, a2, None, wcfg)
     out["wide_f32"] = mv.render_turntable_pallas(wtv, wtn, wtc, a2, wcfg,
                                                  p_cap=wcap, interpret=True)
+
+    stv, stn, stc = (jnp.asarray(a) for a in tiny_scene())
+    out["view/turntable"] = mv.render_turntable(stv, stn, stc, a4, cfg,
+                                                bbox_size=32, chunk=16)
+    v0, n0 = mv._pose_triangles(stv, stn, jnp.zeros(3), (0.0, 0.0, 1.0))
+    out["view/pose0/v"], out["view/pose0/n"] = v0, n0
+    for name, kwargs in (("single", dict(bbox_size=32, chunk=16)),
+                         ("tilted", dict(light_direction=LIGHTS["tilted"]))):
+        res = mv.render_view(v0, n0, stc, cfg, **kwargs)
+        for part, a in zip(("color", "z", "normal"), res):
+            out[f"view/{name}/{part}"] = a
 
     flight = out["light/raster"]
     for size in (64, 128):

@@ -149,20 +149,32 @@ def test_depth_iterator_order_and_reset(cube_path):
 
 
 def test_unported_paths_raise():
+    """No Renderer path raises any more; each does what JAX does. A custom
+    drawer shades the frame's G-buffers; a plain ``PixelBufferFiller``,
+    whose ``compute_triangle_statistics`` is an abstract method with a
+    ``...`` body on a class that is not an ABC (JAX ``fillers.py:45-50``),
+    takes the per-triangle loop, draws nothing and leaves the background."""
+    import cython3dmodelrenderer_tpu as jx
+
     class Custom(pt.IlluminationDrawer):
         def apply(self, color, n_buffer):
             return color
 
     model = pt.Model(np.eye(3, dtype=np.float32), [[0, 1, 2]], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_renderer(Custom()).render(model)
-    from cython3dmodelrenderer_tpu_torch.parallel import multiview
-
-    with pytest.raises(NotImplementedError, match="item 4"):
-        multiview.render_turntable(model, [])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pt.Renderer(pt.PixelBufferFiller(), pt.NoIllumination(),
-                    pt.SimpleIterator, 8, 8, device="cpu").render(model)
+    image = port_renderer(Custom()).render(model, random_colors=False)
+    assert image.get_image().shape == (SIZE, SIZE, 3)
+    assert pt.PixelBufferFiller().compute_triangle_statistics(
+        *([None] * 6)) is None
+    plain = pt.Renderer(pt.PixelBufferFiller(), pt.GuroIllumination([0, 0, 1]),
+                        pt.DepthIterator, 8, 8, device="cpu")
+    assert plain.render(model).get_image().max() == 0
+    assert plain.z_buffer.get_image().min() == np.float32(1e6)
+    jax_plain = jx.Renderer(jx.PixelBufferFiller(),
+                            jx.GuroIllumination([0, 0, 1]), jx.DepthIterator,
+                            8, 8, use_tqdm=False)
+    jax_image = jax_plain.render(jx.Model(np.eye(3, dtype=np.float32),
+                                          [[0, 1, 2]])).get_image()
+    np.testing.assert_array_equal(plain.color_buffer.get_image(), jax_image)
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,17 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
-        [--size 1024] [--frames 20] [--out DIR] [--sweep 1,2,4,8] [--b5]
-        [--binning] [--raster [SOURCE.cu ...]] [--rounds 4] [--p1 [PRIM ...]]
+        [--size 1024] [--frames 20] [--out DIR] [--backend auto|ratio]
+        [--sweep 1,2,4,8] [--b5] [--binning] [--raster [SOURCE.cu ...]]
+        [--rounds 4] [--p1 [PRIM ...]]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
 GuroIllumination and NoIllumination through ``Renderer.render``, traces
 ``--frames`` warm frames with ``torch.profiler``, and prints per frame:
 wall time, summed device-kernel time (and so the device's idle share),
-the number of kernel launches, and the kernels ranked by device time.
+the number of kernel launches, and the kernels ranked by device time
+(``--backend ratio``: the frames of the ratio-form rasterizer).
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
@@ -206,6 +208,7 @@ def main():
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--backend", choices=("auto", "ratio"), default="auto")
     ap.add_argument("--sweep", default="",
                     help="comma-separated view_batch values to trace")
     ap.add_argument("--b5", action="store_true")
@@ -232,7 +235,8 @@ def main():
         v, f = chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS)
     model = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
     print(smi("name,power.limit"))
-    tag = f"{args.scene}@{args.size}"
+    tag = f"{args.scene}@{args.size}" + ("/ratio" if args.backend == "ratio"
+                                         else "")
     if args.binning:
         from cython3dmodelrenderer_tpu_torch.ops import binsort
 
@@ -251,7 +255,7 @@ def main():
                         ("none", pt.NoIllumination())):
         renderer = pt.Renderer(
             pt.AdvancedPixelBufferFiller(args.size, args.size, fov=45,
-                                         device="cuda"),
+                                         device="cuda", backend=args.backend),
             illum, pt.SimpleIterator, args.size, args.size)
         if not args.sweep:
             trace(f"frame_{tag}/{name}", lambda: renderer.render(model),
