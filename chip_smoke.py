@@ -107,10 +107,35 @@ Phases (one line each; any failure exits nonzero):
              at 1024² (edges and vertices) bit-equal to fill_all on CPU
              tensors, and a recording LineDrawer seeing 3·T cube edges;
              ms/frame (10 warm frames, CUDA events), ms/view and ms per
-             triangle, printed as the ``surface`` JSON line.
+             triangle, printed as the ``surface`` JSON line;
+11. sharded — parallel/multiview.py over torch.distributed on the one card,
+             at world size 1 (in process, NCCL) and 2 (two spawned ranks on
+             cuda:0, gloo, whose collectives take CUDA tensors; a rank that
+             raises fails the spawn and the smoke): the view-sharded
+             8-view sphere16k turntable on the cuda backend at view_batch 1
+             and 4, each rank's views bit-equal to the unsharded sweep's
+             and B1 launched N/(D·V) times on every rank; torus262k
+             triangle-sharded, the merged z bit-equal to the unsharded
+             frame's (a ±0.0 tie between shards may flip a zero's sign:
+             ROADMAP §C), colour and normal too (+0.0 for a winner's -0.0
+             at 2 ranks), B4 and B1 launched on every rank and B2 not; the
+             ratio backend at 512², view- and triangle-sharded, against
+             its unsharded render; ms/view, ms/frame (CUDA events, median
+             of 5) beside the unsharded ones; then examples/multichip.py
+             at 2 ranks on the card (its own sharded == unsharded checks,
+             gathered over gloo); the ``sharded`` JSON line;
+12. host    — the native OBJ parser (must build: the card's host has g++)
+             equal to the Python parser on assets/*.obj and on sphere16k
+             and torus262k written out as OBJ, with both parsers' ms; the
+             compat crender.cy.Renderer at 1024² on igor_sphere (host
+             float32 == the filler's G-buffers shaded; cast to uint8 == the
+             port Renderer's frame); utils.timing.time_frames beside
+             measure.cuda_time_ms on a sphere16k frame; the turntable
+             example at 8 views without writing PNGs, equal to the sweep;
+             the ``host`` JSON line.
 
-The ``surface`` JSON line carries phase 10's times beside the card's
-nvidia-smi name and power limit. The next-to-last lines are the nvidia-smi
+The ``surface``, ``sharded`` and ``host`` JSON lines carry their phase's
+numbers beside the card's nvidia-smi name and power limit. The next-to-last lines are the nvidia-smi
 name/power-limit line and one
 JSON object with the kernels' launch counts, errors, times and bounds
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
@@ -161,6 +186,13 @@ P1_FOLD_ULP = 2.0 ** -23
 P1_TIMED = ("epi_cur6", 128)
 SURFACE_WARM_FRAMES = 10
 SURFACE_CPU_SIZE = 512             # the ratio frame held to a CPU render
+# the sharded phase: world sizes on the one card (1: in process, NCCL;
+# 2: two spawned ranks on cuda:0, gloo), the sweep's view batches, the
+# ratio backend's size and the timed calls a case
+SHARD_WORLDS = (1, 2)
+SHARD_VIEW_BATCHES = (1, 4)
+SHARD_RATIO_SIZE = 512
+SHARD_REPS = 5
 
 
 class SmokeFailure(Exception):
@@ -1743,6 +1775,349 @@ def phase_surface(scenes, results, tt_model, colors, light, smi):
     return surface
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharded rendering over torch.distributed
+# ---------------------------------------------------------------------------
+
+def sharded_cases(world, arrays):
+    """This rank's part of phase 11 on a world of ``world`` ranks (the
+    default process group is up): the view-sharded sphere16k turntable at
+    each of SHARD_VIEW_BATCHES and the triangle-sharded torus262k frame on
+    the cuda backend, both against the unsharded render on this rank's
+    card, then the ratio backend at SHARD_RATIO_SIZE². Returns this rank's
+    launches, checks and CUDA-event ms."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.device import resolve_device
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
+    from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
+    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+    from cython3dmodelrenderer_tpu_torch.parallel.mesh import make_mesh
+
+    views = make_mesh([("views", world)])           # no device: the card
+    tris = make_mesh([("tris", world)])
+    rank = views.get_local_rank("views")
+    dev = resolve_device(DEVICE)          # make_mesh selected the card
+    sv, sn, sc = (torch.from_numpy(a).to(dev) for a in arrays["sphere"])
+    tv, tn, tc = (torch.from_numpy(a).to(dev) for a in arrays["torus"])
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    angles = sweep_angles()
+    per = SWEEP_VIEWS // world
+    mine_angles = angles[rank * per:(rank + 1) * per]
+    counters = {"raster": raster_tiles, "sort": sort_i32, "binsort": bin_sort}
+    tag = f"world {world} rank {rank}"
+    out = {"rank": rank, "device": str(dev)}
+
+    def launches_of(fn):
+        for c in counters.values():
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: c.launches for k, c in counters.items()}
+
+    for vb in SHARD_VIEW_BATCHES:
+        def sharded():
+            return multiview.render_turntable_sharded(
+                sv, sn, sc, angles, config, views, post_shift=SWEEP_SHIFT,
+                backend="cuda", view_batch=vb)
+
+        got, launches = launches_of(sharded)
+        want = multiview.render_turntable_pallas(
+            sv, sn, sc, mine_angles, config, post_shift=SWEEP_SHIFT,
+            view_batch=vb)
+        require(got.shape == (per, SIZE, SIZE, 3) and same_bits(got, want),
+                f"sharded {tag} view_batch={vb}: its views != the unsharded "
+                "sweep's")
+        require(launches["raster"] == per // vb,
+                f"sharded {tag} view_batch={vb}: B1 launched "
+                f"{launches['raster']} times, not {per // vb}")
+        ms = cuda_time_ms(sharded, SHARD_REPS, warmup=2)
+        out[f"views_vb{vb}"] = {"launches": launches, "ms_per_call": ms,
+                                "ms_per_view": ms / SWEEP_VIEWS}
+
+    def frame(check_capacity=False):
+        return multiview.render_triangle_sharded(
+            tv, tn, tc, config, tris, backend="cuda",
+            check_capacity=check_capacity)
+
+    (color, z, normal, used), launches = launches_of(lambda: frame(True))
+    c0, z0, n0, total = multiview._render_view_kernel(
+        tv, tn, tc, config, 16, multiview._norm_light((0.0, 0.0, 1.0)), "cuda")
+    # a winner's -0.0 reads +0.0 through the merge's sum of two or more ranks
+    fold = (lambda x: x) if world == 1 else (lambda x: x + 0.0)
+    # bit for bit, but where shards tie at ±0.0 (ROADMAP §C) the sign of
+    # the merged zero is the all-reduce's
+    signs = z.view(torch.int32) != z0.view(torch.int32)
+    z_sign = int(signs.sum())
+    require(torch.equal(z, z0) and bool((z0[signs] == 0).all()),
+            f"sharded {tag} torus262k: merged z != the unsharded frame's")
+    require(same_bits(color, fold(c0)) and same_bits(normal, fold(n0)),
+            f"sharded {tag} torus262k: merged colour/normal != the unsharded "
+            "frame's")
+    require(launches["binsort"] > 0 and launches["raster"] > 0
+            and launches["sort"] == 0,
+            f"sharded {tag} torus262k: not B4 + B1 alone: {launches}")
+    ms = cuda_time_ms(frame, SHARD_REPS, warmup=2)
+    out["frame"] = {"launches": launches, "ms_per_frame": ms, "mesh_max_pairs":
+                    used, "unsharded_pairs": total, "z_sign_differences": z_sign}
+
+    small = RenderConfig(height=SHARD_RATIO_SIZE, width=SHARD_RATIO_SIZE, fov=FOV)
+    got = multiview.render_turntable_sharded(sv, sn, sc, angles, small, views,
+                                             post_shift=SWEEP_SHIFT)
+    want = multiview.render_turntable(sv, sn, sc, mine_angles, small,
+                                      post_shift=SWEEP_SHIFT)
+    require(same_bits(got, want) and on_card(got),
+            f"sharded {tag} ratio turntable@{SHARD_RATIO_SIZE}: != unsharded")
+    pv, pn = multiview._pose_triangles(sv, sn, angles[0], SWEEP_SHIFT)
+    _c, z, _n = multiview.render_triangle_sharded(pv, pn, sc, small, tris)
+    z0 = multiview.render_view(pv, pn, sc, small)[1]
+    require(same_bits(z, z0), f"sharded {tag} ratio frame@{SHARD_RATIO_SIZE}: "
+            "merged z != the unsharded frame's")
+    return out
+
+
+def sharded_rank(rank, world, init_file, arrays, out_dir):
+    """A spawned rank of phase 11: gloo (NCCL refuses two ranks on one
+    card; gloo's collectives take CUDA tensors), then ``sharded_cases``;
+    an exception here fails the spawn and so the smoke."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        result = sharded_cases(world, arrays)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_sharded(tt_model, sweep_colors, torus, smi):
+    """Phase 11; returns the ``sharded`` line's object."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.examples import multichip
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    t_phase = time.perf_counter()
+    arrays = {"sphere": [t.cpu().numpy() for t in (
+                  tt_model.vertices_by_triangles, tt_model.normals_by_triangles,
+                  sweep_colors)],
+              "torus": [t.cpu().numpy() for t in (
+                  torus.vertices_by_triangles, torus.normals_by_triangles,
+                  seeded_colors(torus))]}
+    out = {"smi": smi, "views": SWEEP_VIEWS, "size": SIZE,
+           "torus_triangles": torus.n_triangles(), "unsharded": {}}
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    sv, sn = tt_model.vertices_by_triangles, tt_model.normals_by_triangles
+    for vb in SHARD_VIEW_BATCHES:
+        ms = cuda_time_ms(lambda: multiview.render_turntable_pallas(
+            sv, sn, sweep_colors, sweep_angles(), config,
+            post_shift=SWEEP_SHIFT, view_batch=vb), SHARD_REPS, warmup=2)
+        out["unsharded"][f"views_vb{vb}"] = {"ms_per_call": ms,
+                                             "ms_per_view": ms / SWEEP_VIEWS}
+    tv, tn, tc = (torch.from_numpy(a).to(DEVICE) for a in arrays["torus"])
+    light = multiview._norm_light((0.0, 0.0, 1.0))
+    out["unsharded"]["frame"] = {"ms_per_frame": cuda_time_ms(
+        lambda: multiview._render_view_kernel(tv, tn, tc, config, 16, light,
+                                              "cuda"), SHARD_REPS, warmup=2)}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg1",
+                                rank=0, world_size=1)
+        try:
+            out["world1"] = [sharded_cases(1, arrays)]
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(2, f"{tmp}/pg2", arrays, tmp), nprocs=2,
+                 join=True)
+        out["world2_spawn_s"] = time.perf_counter() - t0
+        out["world2"] = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                out["world2"].append(json.load(f))
+    t0 = time.perf_counter()
+    multichip.main(2)            # the example's own checks, 2 ranks on the card
+    out["multichip_example_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    for world in SHARD_WORLDS:
+        for res in out[f"world{world}"]:
+            views = ", ".join(
+                f"vb {vb}: {res[f'views_vb{vb}']['ms_per_view']:.4f} ms/view "
+                f"(B1 x{res[f'views_vb{vb}']['launches']['raster']})"
+                for vb in SHARD_VIEW_BATCHES)
+            fr = res["frame"]
+            say("sharded", f"world {world} rank {res['rank']} on "
+                f"{res['device']}: views == unsharded, {views}; torus262k "
+                f"z == unsharded ({fr['z_sign_differences']} ±0 sign "
+                f"differences), {fr['ms_per_frame']:.4f} ms/frame, launches "
+                f"{fr['launches']}, mesh max pairs {fr['mesh_max_pairs']} of "
+                f"{fr['unsharded_pairs']}; ratio@{SHARD_RATIO_SIZE} == unsharded")
+    unsharded = out["unsharded"]
+    say("sharded", "unsharded: " + ", ".join(
+        f"vb {vb}: {unsharded[f'views_vb{vb}']['ms_per_view']:.4f} ms/view"
+        for vb in SHARD_VIEW_BATCHES)
+        + f"; torus262k {unsharded['frame']['ms_per_frame']:.4f} ms/frame "
+        f"(CUDA events, median of {SHARD_REPS}; {smi})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the host-side surface
+# ---------------------------------------------------------------------------
+
+def write_obj(path, verts, faces):
+    """An OBJ of ``verts`` (float32, 9 significant digits: exact) and
+    1-based ``faces``."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        np.savetxt(f, verts, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, faces + 1, fmt="f %d %d %d")
+
+
+def same_parse(a, b):
+    import numpy as np
+
+    for field in ("vertices", "texture_coords", "normals", "faces_v",
+                  "faces_vt", "faces_vn", "texture"):
+        x, y = getattr(a, field), getattr(b, field)
+        if (x is None) != (y is None) or (y is not None and (
+                x.dtype != y.dtype or not np.array_equal(x, y))):
+            return False
+    return True
+
+
+def host_parser():
+    """The native parser against the Python parser on every in-repo mesh
+    and on sphere16k and torus262k written out as OBJ; ms of each."""
+    import glob
+    import tempfile
+
+    from cython3dmodelrenderer_tpu_torch.models import obj_io
+    from cython3dmodelrenderer_tpu_torch.native import objparse_native
+
+    require(objparse_native.available(),
+            "the native OBJ parser did not build (no g++ on the card's host?)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = sorted(glob.glob(os.path.join(root, "assets", "*.obj")))
+        for name, mesh in (("sphere16k", displaced_sphere(TRI_SPHERE_SEGMENTS,
+                                                          TRI_SPHERE_RINGS)),
+                           ("torus262k", displaced_torus(*TORUS_QUADS))):
+            paths.append(os.path.join(tmp, f"{name}.obj"))
+            write_obj(paths[-1], *mesh)
+        for path in paths:
+            t0 = time.perf_counter()
+            nat = obj_io._try_native(path, True, None)
+            t1 = time.perf_counter()
+            py = obj_io._load_obj_python(path)
+            t2 = time.perf_counter()
+            name = os.path.basename(path)
+            require(nat is not None and same_parse(nat, py),
+                    f"native parse of {name} != the Python parser's")
+            out[name] = {"triangles": int(py.faces_v.shape[0]),
+                         "native_ms": (t1 - t0) * 1e3,
+                         "python_ms": (t2 - t1) * 1e3}
+            say("host", f"{name}: native parse == Python parse, "
+                f"{py.faces_v.shape[0]} triangles, native "
+                f"{out[name]['native_ms']:.2f} ms, Python "
+                f"{out[name]['python_ms']:.2f} ms (host clock, one parse)")
+    return out
+
+
+def host_compat(scenes):
+    """The compat cy.Renderer at SIZE² on igor_sphere against the port
+    Renderer's frame and the filler's shaded G-buffers."""
+    import numpy as np
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import GuroIllumination, crender
+    from cython3dmodelrenderer_tpu_torch.ops.illumination import cast_u8
+
+    cy = crender.cy
+    model = scenes["igor_sphere"]
+    filler = cy.pixel_buffer_filler.AdvancedPixelBufferFiller(SIZE, SIZE,
+                                                               fov=FOV)
+    renderer = cy.Renderer(filler, cy.illumination.GuroIllumination([0, 0, 1]),
+                           cy.triangle_iterator.SimpleIterator, SIZE, SIZE,
+                           generator=torch.Generator().manual_seed(7))
+    frame = renderer.render(model)
+    shaded = GuroIllumination([0, 0, 1]).apply(filler.get_color_buffer(),
+                                               filler.get_normals_buffer())
+    require(isinstance(frame, np.ndarray) and frame.dtype == np.float32
+            and frame.shape == (SIZE, SIZE, 3) and on_card(shaded),
+            f"compat cy.Renderer: {type(frame)}, filler on {filler.device}")
+    port = seeded_render(make_renderer(GuroIllumination([0, 0, 1]), size=SIZE),
+                         model)
+    frame = torch.from_numpy(frame)
+    require(same_bits(frame, shaded.cpu())
+            and torch.equal(cast_u8(frame), port.cpu()),
+            "compat cy.Renderer: != the port Renderer's shaded frame")
+    say("host", f"compat cy.Renderer igor_sphere@{SIZE}: host float32 == the "
+        "filler's G-buffers shaded, and cast to uint8 == the port Renderer's "
+        "frame")
+    return {"igor_sphere_lit": float((frame.amax(-1) > 0).float().mean())}
+
+
+def host_timing(scenes, results):
+    """``utils.timing.time_frames`` beside ``measure.cuda_time_ms`` on one
+    sphere16k Guro frame."""
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.utils.timing import time_frames
+
+    renderer, model = results[("sphere16k", "guro")][0], scenes["sphere16k"]
+    wall = time_frames(lambda: renderer.render(model), n_warm=5, n_iter=20)
+    event = cuda_time_ms(lambda: renderer.render(model), 20)
+    say("host", f"sphere16k@{SIZE} guro: time_frames {wall:.4f} ms/frame (mean "
+        f"wall of 20, fenced), cuda_time_ms {event:.4f} ms (median of 20)")
+    return {"time_frames_ms": wall, "cuda_time_ms": event}
+
+
+def host_turntable_example():
+    """The turntable example at SWEEP_VIEWS views (no PNGs: the card's host
+    has no OpenCV), against the sweep on the same model."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.examples import turntable
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    frames, ms = turntable.main(SWEEP_VIEWS, SIZE, view_batch=4, write=False)
+    model, colors, post_shift = turntable.load_model(DEVICE)
+    want = multiview.render_turntable_pallas(
+        model.vertices_by_triangles, model.normals_by_triangles, colors,
+        multiview.turntable_angles(SWEEP_VIEWS),
+        RenderConfig(height=SIZE, width=SIZE, fov=45), post_shift=post_shift)
+    lit = float((frames.amax(-1) > 0).float().mean())
+    require(on_card(frames) and same_bits(frames, want) and lit > 0.05
+            and bool(torch.isfinite(frames).all()),
+            f"turntable example: {lit} lit, on {frames.device}")
+    say("host", f"examples.turntable: {SWEEP_VIEWS} views at {SIZE}² == the "
+        f"view_batch=1 sweep, {lit:.4f} of pixels lit, {ms:.4f} ms/view")
+    return {"ms_per_view": ms}
+
+
+def phase_host(scenes, results, smi):
+    """Phase 12; returns the ``host`` line's object."""
+    t0 = time.perf_counter()
+    out = {"parser": host_parser(), "compat": host_compat(scenes),
+           "timing": host_timing(scenes, results),
+           "turntable_example": host_turntable_example(), "smi": smi}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     try:
         import torch
@@ -1781,6 +2156,8 @@ def main():
          probe_dev) = phase_probes()
         surface = phase_surface(scenes, results, tt_model, sweep_colors, light,
                                 smi)
+        sharded = phase_sharded(tt_model, sweep_colors, large["torus262k"], smi)
+        host = phase_host(scenes, results, smi)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1836,6 +2213,8 @@ def main():
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
     print(json.dumps({"surface": surface}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"host": host}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

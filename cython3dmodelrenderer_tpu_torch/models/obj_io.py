@@ -19,8 +19,12 @@ models/obj_io.py``), which cannot be imported here because that package's
   ``map_Kd`` entry and loads the texture in OpenCV's BGR order.
 
 OpenCV is imported only to decode a texture file that exists; a missing
-texture leaves the model untextured without touching ``cv2``. The native
-C++ line parser of the JAX package has no counterpart yet.
+texture leaves the model untextured without touching ``cv2``.
+
+``load_obj`` parses the v/vt/vn/f records with the port's copy of the JAX
+package's C++ line parser (``native/objparse_native.py``) where ``g++``
+can build it, else in Python (``_load_obj_python``, the semantic
+definition); strict parses always take Python (``_try_native``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from ..native import objparse_native
 
 
 @dataclasses.dataclass
@@ -126,6 +132,14 @@ def read_texture_file(filename: str) -> Optional[np.ndarray]:
 def load_obj(filename: str, silent: bool = True,
              external_texture_filename: Optional[str] = None) -> ObjData:
     """Parse an OBJ file (plus its MTL/texture) into flat arrays."""
+    native = _try_native(filename, silent, external_texture_filename)
+    if native is not None:
+        return native
+    return _load_obj_python(filename, silent, external_texture_filename)
+
+
+def _load_obj_python(filename: str, silent: bool = True,
+                     external_texture_filename: Optional[str] = None) -> ObjData:
     vertices: List[List[float]] = []
     texture_coords: List[List[float]] = []
     normals: List[List[float]] = []
@@ -198,3 +212,43 @@ def _finalize(vertices, texture_coords, normals,
     return ObjData(vertices=arr_vertices, texture_coords=arr_tc, normals=arr_n,
                    faces_v=arr_faces_v, faces_vt=arr_fvt, faces_vn=arr_fvn,
                    texture=texture)
+
+
+def _try_native(filename: str, silent: bool,
+                external_texture_filename: Optional[str]) -> Optional[ObjData]:
+    """The C++ parser's v/vt/vn/f records (JAX ``obj_io.py:232-286``); the
+    mtllib resolution and the texture stay in Python (one-shot file reads).
+    None without ``g++``.
+
+    Strict mode (``silent=False``) always uses the Python parser: the C++
+    scanner skips malformed lines without reporting them, so it cannot
+    honour the reference's raise-on-first-error contract (``model.py:70-73``).
+    """
+    if not silent:
+        return None
+    parsed = objparse_native.parse(filename.strip())
+    if parsed is None:
+        return None
+    (vertices, texture_coords, normals, faces_v, faces_vt, faces_vn,
+     mtllib_names) = parsed
+
+    texture = (read_texture_file(external_texture_filename)
+               if external_texture_filename is not None else None)
+    for data in mtllib_names:
+        if texture is not None:
+            break
+        mtl_path = (_obj_dir(filename) if not data.startswith("/") else "") + data
+        image_filename = read_material_file(mtl_path, filename.strip())
+        if image_filename is not None:
+            image_filename = ((_obj_dir(filename)
+                               if image_filename[0] != "/" else "")
+                              + image_filename)
+            texture = read_texture_file(image_filename)
+
+    return ObjData(
+        vertices=vertices,
+        texture_coords=(texture_coords if texture_coords is not None
+                        and len(texture_coords) else None),
+        normals=normals if normals is not None and len(normals) else None,
+        faces_v=faces_v, faces_vt=faces_vt, faces_vn=faces_vn,
+        texture=texture)

@@ -1,1 +1,3 @@
-"""Multi-view rendering: pose-sequence and turntable sweeps (``multiview``)."""
+"""Multi-view and multi-GPU rendering: pose-sequence and turntable sweeps
+and view or triangle sharding (``multiview``) over a ``torch.distributed``
+mesh (``mesh``)."""

@@ -39,9 +39,13 @@ never ``matmul``/``einsum``. The rotation matrix is built on the host by
 ``rotation_matrix`` (looked up through this module), so posed geometry is
 the same on the CPU and on the card.
 
-Not ported here: ``render_turntable_sharded``, ``render_triangle_sharded``
-and ``triangle_shard_capacity`` are multi-GPU work (ROADMAP queue A item
-12). They raise ``NotImplementedError``.
+Multi-GPU: ``render_turntable_sharded`` (``:573``),
+``triangle_shard_capacity`` (``:657``) and ``render_triangle_sharded``
+(``:684``) run over a ``torch.distributed`` mesh (``parallel.mesh``). JAX's
+one ``shard_map`` program becomes one process a rank: every rank passes the
+same full inputs (JAX's replicated ``P()``), renders its own slice, and
+JAX's ``pmin``/``pmax``/``psum`` become ``all_reduce`` on the mesh axis's
+process group. The render itself never leaves the tensors' device.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..ops import binning, raster, raster_ref
@@ -338,13 +343,185 @@ def render_turntable(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     return torch.stack(views)
 
 
-def render_turntable_sharded(*args, **kwargs):
-    raise NotImplementedError("view sharding is ROADMAP queue A item 12")
+# --------------------------------------------------------------------------
+# Sharded rendering over a torch.distributed mesh
+# --------------------------------------------------------------------------
+
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
-def render_triangle_sharded(*args, **kwargs):
-    raise NotImplementedError("triangle sharding is ROADMAP queue A item 12")
+def _mesh_axis(mesh, axis: str, device: torch.device):
+    """(process group, size, this rank's coordinate) of mesh axis ``axis``;
+    the mesh must live on the tensors' device type (its collectives take
+    them)."""
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the tensors on "
+                         f"{device}")
+    group = mesh.get_group(axis)
+    return group, dist.get_world_size(group), mesh.get_local_rank(axis)
 
 
-def triangle_shard_capacity(*args, **kwargs):
-    raise NotImplementedError("triangle sharding is ROADMAP queue A item 12")
+def _mesh_max(value: int, group, device: torch.device) -> int:
+    """The maximum of ``value`` over the ranks of ``group`` (JAX ``pmax``)."""
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.all_reduce(t, dist.ReduceOp.MAX, group=group)
+    return int(t.item())
+
+
+def render_turntable_sharded(tri_verts, tri_norms, tri_colors, angles,
+                             config: RenderConfig, mesh, axis: str = "views",
+                             post_shift=(0.0, 0.0, 1.0), bbox_size: int = 64,
+                             chunk: int = 512, backend: str = "ratio",
+                             p_cap: Optional[int] = None,
+                             interpret: bool = False,
+                             group: int = raster.GROUP, view_batch: int = 1,
+                             check_capacity: bool = False,
+                             auto_resize: bool = True):
+    """The turntable sharded over mesh axis ``axis``: the rank at
+    coordinate r renders views ``[r·N/D, (r+1)·N/D)`` and returns its own
+    ``(N/D, H, W, 3)`` float32 views (JAX ``out_specs=P(axis)``: the output
+    stays sharded for the caller to gather or write out per shard). Every
+    rank passes the same full inputs; ranks along another mesh axis render
+    the same views.
+
+    ``backend``: ``"ratio"`` = ``render_turntable`` (JAX ``"jnp"``, the
+    default as in JAX); ``"cuda"`` / ``"torch"`` = ``render_turntable_pallas``
+    (JAX ``"pallas"``) through the kernels' wrappers or their plain
+    versions, with ``view_batch`` views a launch. ``check_capacity=True``
+    also returns the mesh maximum of each rank's peak per-batch pair total
+    (0 on ``"ratio"``). The port sizes every batch exactly, so nothing can
+    overflow: ``p_cap``, ``auto_resize`` and ``interpret`` are accepted and
+    have no effect.
+    """
+    del p_cap, interpret, auto_resize
+    angles = _host_f32(angles).reshape(-1, 3)
+    n = angles.shape[0]
+    pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
+    if n % n_dev:
+        raise ValueError(f"views ({n}) must divide over {n_dev} ranks")
+    per = n // n_dev
+    if view_batch > 1:
+        if backend == "ratio":
+            raise ValueError("view_batch requires a kernel backend "
+                             "('cuda' or 'torch')")
+        if per % view_batch:
+            raise ValueError(f"view_batch={view_batch} must divide each "
+                             f"rank's {per} views")
+    mine = angles[r * per:(r + 1) * per]
+    if backend == "ratio":
+        images, peak = render_turntable(
+            tri_verts, tri_norms, tri_colors, mine, config,
+            post_shift=post_shift, bbox_size=bbox_size, chunk=chunk), 0
+    else:
+        images, peak = render_turntable_pallas(
+            tri_verts, tri_norms, tri_colors, mine, config,
+            post_shift=post_shift, group=group, check_capacity=True,
+            view_batch=view_batch, backend=backend)
+    if check_capacity:
+        return images, _mesh_max(peak, pg, tri_verts.device)
+    return images
+
+
+def _shard(x: torch.Tensor, n_dev: int, r: int) -> torch.Tensor:
+    """Rank r's contiguous slice of a triangle array; D must divide T."""
+    t = x.shape[0]
+    if t % n_dev:
+        raise ValueError(f"triangles ({t}) must divide over {n_dev} ranks")
+    return x[r * (t // n_dev):(r + 1) * (t // n_dev)]
+
+
+def triangle_shard_capacity(tri_verts, tri_norms, config: RenderConfig,
+                            mesh, axis: str = "tris",
+                            group: int = raster.GROUP, headroom_num: int = 5,
+                            headroom_den: int = 4) -> int:
+    """The mesh maximum of the per-shard pair totals (each rank culls,
+    projects and bins its shard), times ``headroom_num // headroom_den``
+    in integers (JAX ``multiview.py:657``). JAX's ``capacity_bucket``
+    rounding is not ported (ROADMAP A15), and neither is its grouped slot
+    count: ``group`` is accepted and has no effect. The value is for API
+    parity; the port's render sizes each shard exactly and ignores it."""
+    del group
+    pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
+    tv, tn = _shard(tri_verts, n_dev, r), _shard(tri_norms, n_dev, r)
+    degenerate, backfacing = visibility_masks(tv, tn)
+    counts = binning.plane_data(project_to_screen(tv, config),
+                                ~degenerate & ~backfacing, config,
+                                raster.TILE_H, raster.TILE_W)[-1]
+    peak = _mesh_max(int(counts.sum()), pg, tri_verts.device)
+    return peak * headroom_num // headroom_den
+
+
+def _render_view_kernel(tri_verts, tri_norms, tri_colors, config: RenderConfig,
+                        group: int, light, backend: str):
+    """JAX ``_render_view_pallas(post="none")`` (``multiview.py:125-186``):
+    the G-buffer frame (``raster.render_frame``), Lambert-shaded with the
+    pre-negated unit ``light`` unless it is None. Returns (colour, z,
+    normal, pair total)."""
+    (color, z, normal), _img, total = raster.render_frame(
+        tri_verts, tri_norms, tri_colors, config, post="none", group=group,
+        backend=backend)
+    if light is not None:
+        color = lambert_shade(color, normal, light)
+    return color, z, normal, total
+
+
+def _merge_partials(color: torch.Tensor, z: torch.Tensor,
+                    normal: torch.Tensor, rank: int, group):
+    """The exact two-step z-argmin merge of JAX ``multiview.py:734-740``,
+    in its order: the minimum depth over the shards, then the lowest shard
+    among the exact-depth winners, whose colour and normal reach every rank
+    as a SUM of ``where(win, x, 0.0)`` (with two or more ranks a winner's
+    -0.0 reads +0.0, as in JAX). Returns (colour, z (H, W, 1), normal)."""
+    zmin = z[..., 0].clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(zmin, dist.ReduceOp.MIN, group=group)
+    cand = z[..., 0] == zmin
+    smin = torch.where(cand, rank, INT32_MAX).to(torch.int32)
+    dist.all_reduce(smin, dist.ReduceOp.MIN, group=group)
+    win = (cand & (smin == rank))[..., None]
+    color = torch.where(win, color, 0.0)
+    normal = torch.where(win, normal, 0.0)
+    dist.all_reduce(color, dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(normal, dist.ReduceOp.SUM, group=group)
+    return color, zmin[..., None], normal
+
+
+def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
+                            config: RenderConfig, mesh, axis: str = "tris",
+                            bbox_size: int = 64, chunk: int = 512,
+                            light_direction=(0.0, 0.0, 1.0),
+                            backend: str = "ratio",
+                            p_cap: Optional[int] = None,
+                            interpret: bool = False,
+                            group: int = raster.GROUP,
+                            check_capacity: bool = False):
+    """Shard the triangles over mesh axis ``axis`` and merge the partial
+    frames by z-argmin (JAX ``multiview.py:684``).
+
+    The rank at coordinate r renders triangles ``[r·T/D, (r+1)·T/D)`` into
+    a full-resolution shaded colour, z and normal: ``backend="ratio"``
+    through ``render_view`` (JAX ``"jnp"``), ``"cuda"`` / ``"torch"``
+    through ``_render_view_kernel`` (JAX ``"pallas"``). ``_merge_partials``
+    then gives every rank the merged ``(color, z, normal)`` (JAX
+    ``out_specs=P()``). Shards hold contiguous triangle ranges, so the
+    lowest shard among exact-z winners holds the lowest triangle, and the
+    kernel backends' z equals the unsharded frame's on any rank count.
+    ``check_capacity=True`` appends the mesh maximum of the shards' pair
+    totals (0 on ``"ratio"``). ``p_cap`` and ``interpret`` are accepted and
+    have no effect.
+    """
+    del p_cap, interpret
+    pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
+    tv, tn, tc = (_shard(x, n_dev, r)
+                  for x in (tri_verts, tri_norms, tri_colors))
+    if backend == "ratio":
+        color, z, normal = render_view(tv, tn, tc, config, bbox_size=bbox_size,
+                                       chunk=chunk,
+                                       light_direction=light_direction)
+        used = 0
+    else:
+        color, z, normal, used = _render_view_kernel(
+            tv, tn, tc, config, group, _norm_light(light_direction), backend)
+    color, z, normal = _merge_partials(color, z, normal, r, pg)
+    if check_capacity:
+        return color, z, normal, _mesh_max(used, pg, tri_verts.device)
+    return color, z, normal

@@ -1,1 +1,2 @@
-"""NumPy helpers: the sequential oracle renderer (``oracle``)."""
+"""Helpers: the sequential NumPy oracle renderer (``oracle``) and frame
+timing and profiling (``timing``)."""

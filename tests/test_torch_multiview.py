@@ -413,13 +413,6 @@ def test_view_batch_must_divide_and_posts():
     assert p_cap > 0 and g_cap % 4 == 0 and g_cap > 0
 
 
-def test_unported_multiview_functions_raise():
-    for name in ("render_turntable_sharded", "render_triangle_sharded",
-                 "triangle_shard_capacity"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(multiview, name)()
-
-
 def test_ratio_turntable_and_view_match_jax(jax_out, jax_rotations):
     """``test_multiview.py:26-46``: the ratio-form turntable (JAX vmaps it
     over the poses) and a single ``render_view``, bit-equal to JAX; every

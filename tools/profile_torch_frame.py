@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
         [--size 1024] [--frames 20] [--out DIR] [--backend auto|ratio]
         [--sweep 1,2,4,8] [--b5] [--binning] [--raster [SOURCE.cu ...]]
-        [--rounds 4] [--p1 [PRIM ...]]
+        [--rounds 4] [--p1 [PRIM ...]] [--sharded]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
@@ -37,7 +37,10 @@ same ``raster_launch`` (for example the parent commit's, unpacked with
 ``git archive``), built with the repository's nvcc flags, and measures
 device ms and device operations a call (``measure.profile_calls``)
 ``--rounds`` times in turns (A B B A ...), after checking each library's
-image against ``raster_tiles_plain``.
+image against ``raster_tiles_plain``. ``--sharded`` traces, at world
+size 1 in this process (NCCL), ``--frames`` triangle-sharded frames of the
+scene (``render_triangle_sharded``, the merge's four all-reduces
+included) beside the unsharded G-buffer frame they merge.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
@@ -201,6 +204,36 @@ def p1(prims, frames, out):
           frames, 1, out)
 
 
+def sharded(model, size, frames, out):
+    """World size 1 in this process (NCCL): the triangle-sharded frame
+    (``render_triangle_sharded``, the merge's collectives included) beside
+    the unsharded G-buffer frame it merges (``_render_view_kernel``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+    from cython3dmodelrenderer_tpu_torch.parallel.mesh import make_mesh
+
+    config = pt.RenderConfig(height=size, width=size, fov=45)
+    tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+    tc = chip_smoke.seeded_colors(model)
+    light = multiview._norm_light((0.0, 0.0, 1.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh([("tris", 1)])
+            trace(f"unsharded_frame_{size}", lambda: multiview._render_view_kernel(
+                tv, tn, tc, config, 16, light, "cuda"), frames, 1, out)
+            trace(f"triangle_sharded_world1_{size}",
+                  lambda: multiview.render_triangle_sharded(
+                      tv, tn, tc, config, mesh, backend="cuda"),
+                  frames, 1, out)
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
@@ -216,6 +249,7 @@ def main():
     ap.add_argument("--raster", nargs="*", metavar="SOURCE.cu")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--p1", nargs="*", metavar="PRIM")
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
@@ -250,6 +284,9 @@ def main():
         return
     if args.b5:
         b5(model, args.size, args.frames, args.out)
+        return
+    if args.sharded:
+        sharded(model, args.size, args.frames, args.out)
         return
     for name, illum in (("guro", pt.GuroIllumination([0, 0, 1])),
                         ("none", pt.NoIllumination())):
