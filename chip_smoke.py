@@ -11,8 +11,9 @@ Phases (one line each; any failure exits nonzero):
              fails when CUDA is unavailable (no CPU fallback);
 2. build   — builds kernels B1 (csrc/raster.cu), B2 and B4 (the radix-sort
              core, csrc/radix_sort.cu), B5 (csrc/binsort_grouped.cu), P2
-             (csrc/vpu_cal.cu) and P1 (csrc/epi_prims.cu) from the
-             repository's sources, one nvcc each, all started together;
+             (csrc/vpu_cal.cu), P1 (csrc/epi_prims.cu) and F1 (the front
+             end, csrc/frontend.cu) from the repository's sources, one
+             nvcc each, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card:
              B2 (exact, and equal to itself on a second call) on keys
              with duplicates at 0 to 2^18 + 17 keys, both sides of the
@@ -23,18 +24,27 @@ Phases (one line each; any failure exits nonzero):
              exact z ties, z exactly 0 and 1, NaN rows, empty and outside
              bboxes, ±inf, huge and fractional bounds); every B1 check here
              and below is bit for bit (-0.0 is not +0.0) and equal to
-             itself on a second call;
+             itself on a second call; F1 bit for bit in every output (NaN
+             bits too) and equal to itself, with 0, 3 and 6 attribute
+             channels and fast shade, on every scene at 1024², on a
+             seeded edge scene (a vertex on the camera plane, a NaN x, a
+             degenerate, a backfacing, an off-screen and a huge clipped
+             triangle) at 1024² and 72 x 100 and posed in 3 views, and on
+             no triangles (phases 6 and 7 add the large frames and the
+             sweep's posed batches of 4 and 8 views);
 4. main    — Renderer.render at 1024², fov 45, with GuroIllumination and
              NoIllumination, on (a) assets/igor_sphere.obj, (b) a
              16,128-triangle displaced UV sphere built in memory and
              (c) $CRENDER_OBJECTS/T-Rex.obj when that file exists; checks
              the images against the plain path, determinism, the lazy
-             z-buffer and that both kernels launched (the sort route);
+             z-buffer and that both kernels launched (the sort route),
+             and F1 once a frame (as many launches as B1);
              one Renderer, filler and model built with no device
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
              (CUDA events), and each kernel against its plain version (B1
-             also device ms and device operations a call);
+             and F1 also device ms and device operations a call; F1 at
+             sphere16k's 6 and 3 channels);
              B2 at sphere16k@1024²'s 17,473 pair keys beside torch.sort,
              with device ms and device operations a call (torch.profiler);
 6. large   — the un-grouped (counting-sort) path: B4 against its plain
@@ -46,7 +56,8 @@ Phases (one line each; any failure exits nonzero):
              the plain raster, and on the one-tile bins of 1,000 and 200,000
              candidates (one_tile_rows); Renderer.render on those three frames with
              both illuminations, checked as in phase 4, B4 and B1 launched
-             and B2 not; rasterize() once; then their ms/frame (20 warm
+             and B2 not, F1 once a frame; rasterize() once; F1 against its
+             plain version on the three frames; then their ms/frame (20 warm
              frames), B4's whole wrapper at torus262k@1024² and @4096²
              (with torch.sort of the same pairs' tile ids, the sort step
              alone, as a yardstick) and the B3 route against their plain
@@ -58,11 +69,12 @@ Phases (one line each; any failure exits nonzero):
              the sort route, 8 on the counting route: 16,384 stacked
              tiles), fast shade at 1 and 4; every view equal to its
              view_batch=1 render and to render_frame on the same posed
-             arrays, B1 launched N/V times a sweep, one view_batch=8
+             arrays, B1 and F1 launched N/V times a sweep, one view_batch=8
              sweep equal to the plain path; B1's view-batched launch
              against its plain version at view_batch 2 and on a 2-view
-             merge case; then ms per view per view_batch (CUDA events over
-             the sweep / N), B1's view-batched time with its device ms,
+             merge case, F1 on the posed batches of 4 and 8 views; then ms
+             per view per view_batch (CUDA events over the sweep / N), B1's
+             view-batched time with its device ms, F1's on the 4-view batch,
              and B2 at the view_batch=4 batch's pair keys beside
              torch.sort;
 8. b5      — B5 (B4's bins, then csrc/binsort_grouped.cu; on no render
@@ -114,11 +126,11 @@ Phases (one line each; any failure exits nonzero):
              raises fails the spawn and the smoke): the view-sharded
              8-view sphere16k turntable on the cuda backend at view_batch 1
              and 4, each rank's views bit-equal to the unsharded sweep's
-             and B1 launched N/(D·V) times on every rank; torus262k
+             and B1 and F1 launched N/(D·V) times on every rank; torus262k
              triangle-sharded, the merged z bit-equal to the unsharded
-             frame's (a ±0.0 tie between shards may flip a zero's sign:
-             ROADMAP §C), colour and normal too (+0.0 for a winner's -0.0
-             at 2 ranks), B4 and B1 launched on every rank and B2 not; the
+             frame's, colour and normal too (+0.0 for a winner's -0.0 at
+             2 ranks), F1 once, B4 and B1 launched on every rank and B2
+             not; the
              ratio backend at 512², view- and triangle-sharded, against
              its unsharded render; ms/view, ms/frame (CUDA events, median
              of 5) beside the unsharded ones; then examples/multichip.py
@@ -141,8 +153,10 @@ JSON object with the kernels' launch counts, errors, times and bounds
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the f32
 operations this run's inputs need over 33.5 T instructions/s; P1's
 ``max_abs_err`` is the one-replica difference that its checks hold; the
-three B1/B3 entries, B5, P1 and P2 also carry ``device_ms`` and
-``device_ops``); the last line is ``{"ok": true, "device": {...}}``.
+three B1/B3 entries, B5, P1, P2 and the three F1 entries (sphere16k and
+torus262k at 1024², 6 channels, and the sweep's 4-view batch) also carry
+``device_ms`` and ``device_ops``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 import json
 import os
@@ -158,7 +172,7 @@ POSTS = ("none", "u8", "lambert_u8")
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
 KERNEL_SOURCES = ("radix_sort", "raster", "binsort_grouped", "vpu_cal",
-                  "epi_prims")
+                  "epi_prims", "frontend")
 # B2's checks: key counts and (key width, sort bits)
 SORT_CHECK_SIZES = (0, 1, 2, 1000, 17473, 78000, (1 << 17) - 1, 1 << 17,
                     (1 << 17) + 1, (1 << 18) + 17)
@@ -193,6 +207,12 @@ SHARD_WORLDS = (1, 2)
 SHARD_VIEW_BATCHES = (1, 4)
 SHARD_RATIO_SIZE = 512
 SHARD_REPS = 5
+# F1 (the front end): (tag, attribute channels, fast shade), and the edge
+# scene's frames (height, width)
+FRONTEND_VARIANTS = (("geometry", 0, False), ("lean", 3, False),
+                     ("full", 6, False), ("fast", 3, True))
+FRONTEND_OUTPUTS = ("rows", "tx0", "cx", "ty0", "cy", "counts", "total")
+FRONTEND_EDGE_FRAMES = ((SIZE, SIZE), (72, 100))
 
 
 class SmokeFailure(Exception):
@@ -544,6 +564,29 @@ def binning_bound(spans, outputs, pairs):
     return roofline_ms(nbytes(*spans[:4], *outputs), 2 * pairs)
 
 
+def frontend_instructions(n_attrs, fast, posed):
+    """F1's f32 instructions a (view, triangle), counted from
+    csrc/frontend.cu: cull 12, projection 93, λ planes 42, z plane 15,
+    bbox and its rule 46, spans 12; 15 an attribute channel; fast shade
+    57; the pose 99."""
+    return 220 + 15 * n_attrs + 57 * fast + 99 * posed
+
+
+def frontend_bound(args, kwargs, outputs):
+    """F1: vertices, normals, colours (with channels) and poses read once,
+    rows, spans and the total written once; ``frontend_instructions`` a
+    (view, triangle)."""
+    from cython3dmodelrenderer_tpu_torch.measure import roofline_ms
+
+    verts, norms, colors, _config, n_attrs = args[:5]
+    poses = kwargs.get("poses")
+    inputs = [verts, norms] + ([colors] if n_attrs else []) + (
+        [poses] if poses is not None else [])
+    ops = outputs[0].shape[0] * frontend_instructions(
+        n_attrs, kwargs.get("shade") is not None, poses is not None)
+    return roofline_ms(nbytes(*inputs, *outputs), ops)
+
+
 def pair_keys(spans):
     """The packed pair keys ``bin_pairs`` gives B2 for ``spans``, and their
     width in bits."""
@@ -635,6 +678,139 @@ def time_raster(kw, opts, n, n_plain):
             "plain_ms": cuda_time_ms(lambda: raster_tiles_plain(**kw, **opts),
                                      n_plain),
             "device_ms": dev_ms, "device_ops": ops}
+
+
+# ---------------------------------------------------------------------------
+# F1: the front end
+# ---------------------------------------------------------------------------
+
+def frontend_edge_scene(device, n=600, seed=11):
+    """``n`` seeded triangles reaching past the image edges, with colours
+    and unit normals; rows 0-5 hold a vertex on the camera plane (w = 0),
+    a NaN x coordinate, a degenerate, a backfacing, a fully off-screen and
+    a huge clipped triangle."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    centers = (torch.rand((n, 1, 3), generator=g) - 0.5) * 1.3
+    centers[..., 2] = 0.7 + 0.7 * torch.rand((n, 1), generator=g)
+    tris = centers + (torch.rand((n, 3, 3), generator=g) - 0.5) * 0.5
+    normals = torch.randn((n, 3, 3), generator=g)
+    normals = normals / normals.norm(dim=-1, keepdim=True)
+    colors = 255.0 * torch.rand((n, 3, 3), generator=g)
+    tris[0, 1, 2] = 0.0
+    tris[1, 2, 0] = float("nan")
+    tris[2, 2] = tris[2, 0]
+    normals[3, :, 2] = normals[3, :, 2].abs() + 0.1
+    tris[4, :, 0] += 5.0
+    tris[5] = torch.tensor([[-2.0, -2.0, 1.0], [3.0, -1.0, 1.0],
+                            [0.0, 3.0, 1.0]])
+    front = [0, 1, 2, 4, 5]
+    normals[front, :, 2] = -normals[front, :, 2].abs() - 0.1
+    return tuple(t.to(device) for t in (tris, normals, colors))
+
+
+def frontend_call(verts, norms, colors, height, width, n_attrs, fast, light,
+                  poses=None):
+    """F1's positional and keyword arguments for a height x width frame."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+
+    config = RenderConfig(height=height, width=width, fov=FOV)
+    return ((verts, norms, colors, config, n_attrs, raster.TILE_H,
+             raster.TILE_W), dict(shade=light if fast else None, poses=poses))
+
+
+def sweep_poses(vb):
+    """The (vb, 4, 3) poses of the sweep's first vb views."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    return torch.stack([multiview._pose_matrix(a, s) for a, s in
+                        zip(sweep_angles()[:vb], sweep_shifts()[:vb])])
+
+
+def check_frontend(tag, args, kwargs):
+    """F1 (``frame_planes``) against its plain version on the card: every
+    output bit for bit, NaN bits included, and equal to itself on a second
+    call (so F1's ``max_abs_err`` is 0.0)."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import (
+        frame_planes, frame_planes_plain)
+
+    runs = [frame_planes(*args, **kwargs), frame_planes(*args, **kwargs),
+            frame_planes_plain(*args, **kwargs)]
+    torch.cuda.synchronize()
+    for name, got, again, want in zip(FRONTEND_OUTPUTS, *runs):
+        if not same_bits(got, want):
+            detail = f"{tuple(got.shape)} against {tuple(want.shape)}"
+            if got.is_floating_point() and got.shape == want.shape:
+                differ = got.view(torch.int32) != want.view(torch.int32)
+                nan = differ & torch.isnan(got) & torch.isnan(want)
+                detail = (f"{int(differ.sum())} of {got.numel()} differ, "
+                          f"{int(nan.sum())} of them NaN against NaN")
+            elif got.shape == want.shape:
+                detail = f"{int((got != want).sum())} of {got.numel()} differ"
+            raise SmokeFailure(f"F1 {tag}: {name} differs from the plain "
+                               f"version ({detail})")
+        require(same_bits(got, again), f"F1 {tag}: {name}: two runs differ")
+    rows = runs[0][0]
+    say("kernels", f"F1 {tag}: bit-equal to plain, equal to itself on a "
+        f"second call ({rows.shape[0]} rows x {rows.shape[1]}, "
+        f"{int(runs[0][-1])} pairs)")
+
+
+def time_frontend(tag, args, kwargs):
+    """F1 against its plain version: CUDA-event ms a call of each, device
+    ms and device operations a call of each (torch.profiler), and F1's
+    bound on these inputs."""
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import (
+        frame_planes, frame_planes_plain)
+
+    def kernel():
+        return frame_planes(*args, **kwargs)
+
+    def plain():
+        return frame_planes_plain(*args, **kwargs)
+
+    dev_ms, ops = profile_calls(kernel, 20)
+    plain_dev_ms, plain_ops = profile_calls(plain, 10)
+    out = {"ms": cuda_time_ms(kernel, 100), "plain_ms": cuda_time_ms(plain, 20),
+           "device_ms": dev_ms, "device_ops": ops,
+           "plain_device_ms": plain_dev_ms, "plain_device_ops": plain_ops}
+    out["bound"] = frontend_bound(args, kwargs, kernel())
+    say("timing", f"F1 {tag}: kernel {out['ms']:.4f} ms a call (CUDA events),"
+        f" device {dev_ms} ms in {ops} device operations; plain chain "
+        f"{out['plain_ms']:.4f} ms, device {plain_dev_ms} ms in {plain_ops} "
+        f"operations; bound {out['bound'][0]:.6f} ms ({out['bound'][1]})")
+    return out
+
+
+def phase_kernels_frontend(scenes, light):
+    """F1 against its plain version: every scene at SIZE², the edge scene
+    at FRONTEND_EDGE_FRAMES and posed in three views, and no triangles,
+    each in every variant (0, 3, 6 channels, fast shade)."""
+    import torch
+
+    edge = frontend_edge_scene("cuda")
+    empty = tuple(torch.zeros((0, 3, 3), device="cuda") for _ in range(3))
+    cases = [(f"{name}@{SIZE}", (model.vertices_by_triangles,
+                                 model.normals_by_triangles,
+                                 seeded_colors(model)), SIZE, SIZE, None)
+             for name, model in scenes.items()]
+    cases += [(f"edge@{h}x{w}", edge, h, w, None)
+              for h, w in FRONTEND_EDGE_FRAMES]
+    cases += [(f"edge posed x3 @{SIZE}", edge, SIZE, SIZE, sweep_poses(3)),
+              (f"empty@{SIZE}", empty, SIZE, SIZE, None)]
+    for tag, arrays, h, w, poses in cases:
+        for vtag, n_attrs, fast in FRONTEND_VARIANTS:
+            args, kw = frontend_call(*arrays, h, w, n_attrs, fast, light,
+                                     poses)
+            check_frontend(f"{tag} {vtag}", args, kw)
 
 
 def phase_kernels(scenes, light):
@@ -749,6 +925,14 @@ def phase_kernels_large(scenes, light):
                             z_init=1e6), bin_sort(*spans))
         b3_err = max(b3_err, check_raster(f"on B4 bins, one tile x {n}", kw,
                                           light, ("none", "lambert_u8")))
+    for name, size in LARGE_FRAMES:
+        model = scenes[name]
+        for vtag, n_attrs, fast in FRONTEND_VARIANTS:
+            args, kw = frontend_call(model.vertices_by_triangles,
+                                     model.normals_by_triangles,
+                                     seeded_colors(model), size, size, n_attrs,
+                                     fast, light)
+            check_frontend(f"{name}@{size} {vtag}", args, kw)
     return binsort_err, b3_err, inputs
 
 
@@ -795,12 +979,14 @@ def phase_main(scenes):
     import torch
 
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
     from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
     raster_tiles.launches = 0
     sort_i32.launches = 0
+    frame_planes.launches = 0
     results = {}
     for name, model in scenes.items():
         for iname, illum in illums:
@@ -811,7 +997,8 @@ def phase_main(scenes):
                                       renderer.z_buffer.array)
     default = default_device_render()
     torch.cuda.synchronize()
-    launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches}
+    launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches,
+                "frontend": frame_planes.launches}
 
     for (name, iname), (renderer, img1, img2, z) in results.items():
         lit = check_frame(f"{name}/{iname}", img1, img2, z, SIZE)
@@ -833,8 +1020,12 @@ def phase_main(scenes):
     say("main", f"Renderer, filler and Model.read_model with no device: on "
         f"{img.device}, backend {renderer.pixel_buffer_filler.backend}, "
         "== the igor_sphere guro frame")
-    require(launches["raster"] > 0 and launches["sort"] > 0,
+    require(launches["raster"] > 0 and launches["sort"] > 0
+            and launches["frontend"] > 0,
             f"a kernel was not launched on the main path: {launches}")
+    # every frame (the lazy z getter's re-render too) runs F1 once, B1 once
+    require(launches["frontend"] == launches["raster"],
+            f"F1 was not launched once a frame: {launches}")
     say("main", f"kernel launches on the main path: {launches}")
     return launches, results
 
@@ -866,6 +1057,7 @@ def phase_large(scenes):
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
     from cython3dmodelrenderer_tpu_torch.ops.projection import (
         project_to_screen, visibility_masks)
     from cython3dmodelrenderer_tpu_torch.ops.raster import (rasterize,
@@ -881,6 +1073,7 @@ def phase_large(scenes):
     deg, back = visibility_masks(tv, tn)
     screen = project_to_screen(tv, config)
     bin_sort.launches = raster_tiles.launches = sort_i32.launches = 0
+    frame_planes.launches = 0
     results = {}
     for name, size in LARGE_FRAMES:
         for iname, illum in illums:
@@ -892,7 +1085,7 @@ def phase_large(scenes):
     gbuf = rasterize(screen, tc, tn, ~deg & ~back, config)
     torch.cuda.synchronize()
     launches = {"binsort": bin_sort.launches, "raster": raster_tiles.launches,
-                "sort": sort_i32.launches}
+                "sort": sort_i32.launches, "frontend": frame_planes.launches}
 
     for (name, size, iname), (renderer, img1, img2, z) in results.items():
         tag = f"{name}@{size}/{iname}"
@@ -915,6 +1108,9 @@ def phase_large(scenes):
     require(launches["binsort"] > 0 and launches["raster"] > 0
             and launches["sort"] == 0,
             f"the un-grouped path did not run on B4 + B1 alone: {launches}")
+    # F1 once a frame; rasterize() takes projected input and skips it
+    require(launches["frontend"] == launches["raster"] - 1 > 0,
+            f"F1 was not launched once a frame: {launches}")
     say("large", f"kernel launches on the un-grouped path: {launches}")
     return launches, results
 
@@ -957,6 +1153,12 @@ def phase_timing(scenes, results, inputs, light):
     say("timing", f"B1 sphere16k@{SIZE}: device {b1['device_ms']} ms in "
         f"{b1['device_ops']} device operations a call")
     bounds = {"sort": sort_bound(keys, bits), "raster": raster_bound(kw)}
+    model = scenes["sphere16k"]
+    for n_attrs in (6, 3):           # the Guro frame's rows, then the None's
+        frame_ms[f"frontend_sphere16k@{SIZE}_c{n_attrs}"] = time_frontend(
+            f"sphere16k@{SIZE} C={n_attrs}", *frontend_call(
+                model.vertices_by_triangles, model.normals_by_triangles,
+                seeded_colors(model), SIZE, SIZE, n_attrs, False, light))
     return frame_ms, kt, bounds
 
 
@@ -1031,6 +1233,12 @@ def phase_timing_large(scenes, results, inputs, light):
         f"{out['sort_searchsorted']['device_ms']} ms in "
         f"{out['sort_searchsorted']['device_ops']} operations")
     frame_ms[f"binning_routes_sphere16k@{SIZE}"] = out
+    torus = scenes["torus262k"]
+    for n_attrs in (6, 3):
+        frame_ms[f"frontend_torus262k@{SIZE}_c{n_attrs}"] = time_frontend(
+            f"torus262k@{SIZE} C={n_attrs}", *frontend_call(
+                torus.vertices_by_triangles, torus.normals_by_triangles,
+                seeded_colors(torus), SIZE, SIZE, n_attrs, False, light))
     return frame_ms, kt, bounds
 
 
@@ -1102,6 +1310,7 @@ def phase_sweep(model, light):
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
     from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
                                                             render_frame)
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
@@ -1111,7 +1320,7 @@ def phase_sweep(model, light):
     runs = [(iname, vb, False) for iname, _ in illums for vb in SWEEP_BATCHES]
     runs += [("guro", vb, True) for vb in FAST_BATCHES]
     renderers = {iname: make_renderer(illum) for iname, illum in illums}
-    counters = (raster_tiles, sort_i32, bin_sort)
+    counters = (raster_tiles, sort_i32, bin_sort, frame_planes)
     results, per_sweep = {}, {}
     for c in counters:
         c.launches = 0
@@ -1124,8 +1333,11 @@ def phase_sweep(model, light):
     torch.cuda.synchronize()
     launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches,
                 "binsort": bin_sort.launches,
+                "frontend": frame_planes.launches,
                 "raster_batched": sum(n[0] for (_i, vb, _f), n in
-                                      per_sweep.items() if vb > 1)}
+                                      per_sweep.items() if vb > 1),
+                "frontend_batched": sum(n[3] for (_i, vb, _f), n in
+                                        per_sweep.items() if vb > 1)}
 
     config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
     gen = torch.Generator().manual_seed(7)
@@ -1141,16 +1353,18 @@ def phase_sweep(model, light):
                 and imgs.dtype == torch.uint8, f"sweep {tag}: {imgs.shape}")
         require(torch.equal(imgs, results[(iname, 1, fast)]),
                 f"sweep {tag}: differs from view_batch=1")
-        n_b1, n_b2, n_b4 = per_sweep[(iname, vb, fast)]
+        n_b1, n_b2, n_b4, n_f1 = per_sweep[(iname, vb, fast)]
         require(n_b1 == SWEEP_VIEWS // vb,
                 f"sweep {tag}: B1 launched {n_b1} times, not N/V")
+        require(n_f1 == SWEEP_VIEWS // vb,
+                f"sweep {tag}: F1 launched {n_f1} times, not once a batch")
         want_route = (0, 1) if vb == 8 else (SWEEP_VIEWS // vb, 0)
         require((n_b2, n_b4) == want_route,
                 f"sweep {tag}: B2/B4 launches {(n_b2, n_b4)}, want {want_route}")
         lit = float((imgs.amax(-1) > 0).float().mean())
         require(lit > 0.05, f"sweep {tag}: frames are empty ({lit})")
         say("sweep", f"{tag}: == view_batch=1, B1 x{n_b1}, B2 x{n_b2}, "
-            f"B4 x{n_b4}, {lit:.4f} of pixels lit")
+            f"B4 x{n_b4}, F1 x{n_f1}, {lit:.4f} of pixels lit")
     for iname, fast in (("guro", False), ("none", False), ("guro", True)):
         post = ("fast_lambert_u8" if fast else
                 "lambert_u8" if iname == "guro" else "u8")
@@ -1169,7 +1383,7 @@ def phase_sweep(model, light):
             "sweep guro view_batch=8: kernel sweep != plain-path sweep")
     say("sweep", f"guro view_batch={SWEEP_VIEWS}: == plain-path sweep")
     require(launches["raster_batched"] > 0 and launches["sort"] > 0
-            and launches["binsort"] > 0,
+            and launches["binsort"] > 0 and launches["frontend_batched"] > 0,
             f"a kernel was not launched on the sweep path: {launches}")
     say("sweep", f"kernel launches on the sweep path: {launches}")
     return launches, renderers, colors
@@ -1183,11 +1397,11 @@ def sweep_batch_planes(model, colors, post, vb):
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
 
     config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
-    rows, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+    rows, tx0, cx, ty0, cy, _counts, total = multiview._stacked_planes(
         model.vertices_by_triangles, model.normals_by_triangles, colors,
         sweep_angles()[:vb], sweep_shifts()[:vb], config, lean=post == "u8")
     ntx, nty = SIZE // raster.TILE_W, SIZE // raster.TILE_H
-    return rows, (tx0, cx, ty0, cy, ntx, vb * nty, int(counts.sum()))
+    return rows, (tx0, cx, ty0, cy, ntx, vb * nty, int(total))
 
 
 def sweep_batch_inputs(model, colors, post, vb=2):
@@ -1207,14 +1421,23 @@ def sweep_batch_inputs(model, colors, post, vb=2):
 
 
 def phase_kernels_sweep(model, colors, light):
-    """B1's view-batched launch against its plain version (view_batch 2)."""
+    """B1's view-batched launch against its plain version (view_batch 2);
+    F1's posed batches of the sweep (view_batch 4 and 8, every variant)
+    against its plain version. Returns B1's largest difference."""
     err = 0.0
     for post in POSTS:
         err = max(err, check_raster("view-batched (2 views) sphere16k",
                                     sweep_batch_inputs(model, colors, post),
                                     light, (post,)))
-    return max(err, check_raster("view-batched merge case (2 views, 40 x 80)",
-                                 merge_case("cuda", 2, 2), light))
+    err = max(err, check_raster("view-batched merge case (2 views, 40 x 80)",
+                                merge_case("cuda", 2, 2), light))
+    for vb in (4, SWEEP_VIEWS):
+        for vtag, n_attrs, fast in FRONTEND_VARIANTS:
+            args, kw = frontend_call(model.vertices_by_triangles,
+                                     model.normals_by_triangles, colors, SIZE,
+                                     SIZE, n_attrs, fast, light, sweep_poses(vb))
+            check_frontend(f"sweep batch x{vb} {vtag}", args, kw)
+    return err
 
 
 def phase_timing_sweep(renderers, model, colors, light, frame_ms):
@@ -1243,6 +1466,9 @@ def phase_timing_sweep(renderers, model, colors, light, frame_ms):
             f"{ms / SWEEP_VIEWS:.4f} ms/view")
     keys, bits = pair_keys(sweep_batch_planes(model, colors, "lambert_u8", 4)[1])
     out["sort_vb4"] = time_sort("view_batch=4 batch pair keys", keys, bits)
+    out["frontend_vb4"] = time_frontend("sweep batch x4 C=6", *frontend_call(
+        model.vertices_by_triangles, model.normals_by_triangles, colors, SIZE,
+        SIZE, 6, False, light, sweep_poses(4)))
     kw = sweep_batch_inputs(model, colors, "lambert_u8")
     b1 = time_raster(kw, raster_opts("lambert_u8", light), 100, 10)
     out["raster_vb2"] = b1
@@ -1792,6 +2018,7 @@ def sharded_cases(world, arrays):
     from cython3dmodelrenderer_tpu_torch.device import resolve_device
     from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
     from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
     from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
     from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
@@ -1807,7 +2034,8 @@ def sharded_cases(world, arrays):
     angles = sweep_angles()
     per = SWEEP_VIEWS // world
     mine_angles = angles[rank * per:(rank + 1) * per]
-    counters = {"raster": raster_tiles, "sort": sort_i32, "binsort": bin_sort}
+    counters = {"raster": raster_tiles, "sort": sort_i32, "binsort": bin_sort,
+                "frontend": frame_planes}
     tag = f"world {world} rank {rank}"
     out = {"rank": rank, "device": str(dev)}
 
@@ -1831,9 +2059,10 @@ def sharded_cases(world, arrays):
         require(got.shape == (per, SIZE, SIZE, 3) and same_bits(got, want),
                 f"sharded {tag} view_batch={vb}: its views != the unsharded "
                 "sweep's")
-        require(launches["raster"] == per // vb,
-                f"sharded {tag} view_batch={vb}: B1 launched "
-                f"{launches['raster']} times, not {per // vb}")
+        require(launches["raster"] == launches["frontend"] == per // vb,
+                f"sharded {tag} view_batch={vb}: B1 / F1 launched "
+                f"{launches['raster']} / {launches['frontend']} times, not "
+                f"{per // vb}")
         ms = cuda_time_ms(sharded, SHARD_REPS, warmup=2)
         out[f"views_vb{vb}"] = {"launches": launches, "ms_per_call": ms,
                                 "ms_per_view": ms / SWEEP_VIEWS}
@@ -1846,23 +2075,20 @@ def sharded_cases(world, arrays):
     (color, z, normal, used), launches = launches_of(lambda: frame(True))
     c0, z0, n0, total = multiview._render_view_kernel(
         tv, tn, tc, config, 16, multiview._norm_light((0.0, 0.0, 1.0)), "cuda")
-    # a winner's -0.0 reads +0.0 through the merge's sum of two or more ranks
+    # a winner's -0.0 reads +0.0 through the merge's sum of two or more
+    # ranks; z is the winner's own, ±0 included
     fold = (lambda x: x) if world == 1 else (lambda x: x + 0.0)
-    # bit for bit, but where shards tie at ±0.0 (ROADMAP §C) the sign of
-    # the merged zero is the all-reduce's
-    signs = z.view(torch.int32) != z0.view(torch.int32)
-    z_sign = int(signs.sum())
-    require(torch.equal(z, z0) and bool((z0[signs] == 0).all()),
+    require(same_bits(z, z0),
             f"sharded {tag} torus262k: merged z != the unsharded frame's")
     require(same_bits(color, fold(c0)) and same_bits(normal, fold(n0)),
             f"sharded {tag} torus262k: merged colour/normal != the unsharded "
             "frame's")
     require(launches["binsort"] > 0 and launches["raster"] > 0
-            and launches["sort"] == 0,
-            f"sharded {tag} torus262k: not B4 + B1 alone: {launches}")
+            and launches["sort"] == 0 and launches["frontend"] == 1,
+            f"sharded {tag} torus262k: not F1 once, B4 + B1 alone: {launches}")
     ms = cuda_time_ms(frame, SHARD_REPS, warmup=2)
     out["frame"] = {"launches": launches, "ms_per_frame": ms, "mesh_max_pairs":
-                    used, "unsharded_pairs": total, "z_sign_differences": z_sign}
+                    used, "unsharded_pairs": total}
 
     small = RenderConfig(height=SHARD_RATIO_SIZE, width=SHARD_RATIO_SIZE, fov=FOV)
     got = multiview.render_turntable_sharded(sv, sn, sc, angles, small, views,
@@ -1958,8 +2184,7 @@ def phase_sharded(tt_model, sweep_colors, torus, smi):
             fr = res["frame"]
             say("sharded", f"world {world} rank {res['rank']} on "
                 f"{res['device']}: views == unsharded, {views}; torus262k "
-                f"z == unsharded ({fr['z_sign_differences']} ±0 sign "
-                f"differences), {fr['ms_per_frame']:.4f} ms/frame, launches "
+                f"z bit-equal to unsharded, {fr['ms_per_frame']:.4f} ms/frame, launches "
                 f"{fr['launches']}, mesh max pairs {fr['mesh_max_pairs']} of "
                 f"{fr['unsharded_pairs']}; ratio@{SHARD_RATIO_SIZE} == unsharded")
     unsharded = out["unsharded"]
@@ -2138,6 +2363,7 @@ def main():
                                 for n, m in scenes.items()))
         light = GuroIllumination([0, 0, 1]).light_direction
         sort_err, raster_err, inputs = phase_kernels(scenes, light)
+        phase_kernels_frontend(scenes, light)
         launches, results = phase_main(scenes)
         frame_ms, kt, bounds = phase_timing(scenes, results, inputs, light)
         large = load_large_scenes("cuda", scenes)
@@ -2178,6 +2404,14 @@ def main():
         return out
 
     pkg = "cython3dmodelrenderer_tpu/ops/"
+    glue = ("cython3dmodelrenderer_tpu/fillers.py:54 + "
+            "cython3dmodelrenderer_tpu/ops/binning.py:52 (XLA glue, not a "
+            "pallas_call site)")
+
+    def f1_entry(tag, n, t):            # every F1 check is bit for bit
+        return entry(f"frame_planes (F1) {tag}", "frontend.cu", glue, n, 0.0,
+                     (t["ms"], t["plain_ms"]), t["bound"], device=t)
+
     kernels = [
         entry("raster_tiles (B1)", "raster.cu", pkg + "raster_pallas.py:293",
               launches["raster"], raster_err, kt["raster"], bounds["raster"],
@@ -2209,6 +2443,12 @@ def main():
               "tools/probes/epi_prims.py:275", probe_launches["epi_prims"],
               probe_err["epi_prims"], probe_ms["epi_prims"],
               probe_bounds["epi_prims"], device=probe_dev["epi_prims"]),
+        f1_entry(f"sphere16k@{SIZE} C=6", launches["frontend"],
+                 frame_ms[f"frontend_sphere16k@{SIZE}_c6"]),
+        f1_entry(f"torus262k@{SIZE} C=6", large_launches["frontend"],
+                 large_ms[f"frontend_torus262k@{SIZE}_c6"]),
+        f1_entry("sweep batch x4 C=6", sweep_launches["frontend_batched"],
+                 sweep_ms["frontend_vb4"]),
     ]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)

@@ -45,8 +45,8 @@ from .. import cuda_build
 from ..config import RenderConfig
 from . import binning
 from .binsort import bin_pairs, bin_sort, bin_sort_plain, grouped_limits_ok
+from .frontend import frame_planes, frame_planes_plain
 from .illumination import cast_u8, lambert_shade
-from .projection import project_to_screen, visibility_masks
 from .sort import sort_i32, sort_i32_plain
 
 TILE_H = 16
@@ -361,7 +361,8 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  backend: str = "torch", group: int = 1,
                  stats: Optional[dict] = None
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor], int]:
-    """One frame: cull + project → plane rows → bins → raster (B1).
+    """One frame: the front end (F1: cull, project, plane rows, spans) →
+    bins → raster (B1).
 
     ``post``: ``"none"`` (G-buffer only), ``"u8"`` (uint8 colour image),
     ``"lambert_u8"`` (Lambert-shaded with ``light``, the pre-negated unit
@@ -397,19 +398,15 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                                                 device=dev)
         return (background(h, w, config.z_init, dev) if emit_gbuf else None,
                 img, 0)
-    degenerate, backfacing = visibility_masks(tri_verts, tri_norms)
-    active = ~degenerate & ~backfacing
-    tris_screen = project_to_screen(tri_verts, config)
-    colors = tri_colors.to(torch.float32)
-    if fast:                                    # Gouraud: shade per vertex
-        colors = lambert_shade(colors, tri_norms, light)
-    # hot u8 frames never read normals: 3 attribute channels (25 columns)
+    # hot u8 frames never read normals: 3 attribute channels (25 columns);
+    # fast shade bakes Lambert into the vertex colours (Gouraud)
     n_attrs = (3 if fast or (post == "u8" and not emit_gbuf)
                else binning.N_ATTRS)
-    rows, tx0, cx, ty0, cy, counts = binning.plane_data(
-        tris_screen, active, config, TILE_H, TILE_W, colors=colors,
-        normals=None if n_attrs == 3 else tri_norms)
-    total = int(counts.sum())                   # the frame's one host read
+    planes = frame_planes if backend == "cuda" else frame_planes_plain
+    rows, tx0, cx, ty0, cy, _counts, total = planes(
+        tri_verts, tri_norms, tri_colors, config, n_attrs, TILE_H, TILE_W,
+        shade=light if fast else None)
+    total = int(total)                          # the frame's one host read
     bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
     if stats is not None:
         stats["active_tiles"] = (bins[2] > 0).sum()

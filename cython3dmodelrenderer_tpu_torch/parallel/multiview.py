@@ -10,8 +10,9 @@ port renders one pose after another through ``ops/raster_ref.py``.
 
 A batch of ``view_batch`` consecutive poses renders as one stacked frame
 (``_render_view_batch``, the counterpart of ``_batched_view_spans`` +
-``_render_viewbatch_pallas``): each view is posed, culled, projected and
-turned into plane rows on its own; the views' spans are stacked on one
+``_render_viewbatch_pallas``): one launch of the front-end kernel F1
+(``ops/frontend.py::frame_planes``) poses, culls, projects and plane-stages
+every view, each as it would alone; the views' spans are stacked on one
 ``ntx x (V·nty)`` tile grid (view v's ``ty0`` offset by ``v·nty``) and
 their plane rows one after another (view v's triangle i at row ``v·T + i``).
 Every (view, tile) bin then holds only that view's triangles, in ascending
@@ -34,8 +35,9 @@ batch's pair total, so nothing can overflow: ``p_cap`` and ``g_cap`` are
 accepted and have no effect, and ``check_capacity=True`` returns the peak
 per-batch pair total — the port's demand, not JAX's slot bucket.
 
-Posing uses the port's explicit 3-term products (``transforms._matmul3``),
-never ``matmul``/``einsum``. The rotation matrix is built on the host by
+Posing uses the port's explicit 3-term products
+(``frontend.pose_triangles``, and F1 the same products), never
+``matmul``/``einsum``. The rotation matrix is built on the host by
 ``rotation_matrix`` (looked up through this module), so posed geometry is
 the same on the CPU and on the card.
 
@@ -58,9 +60,10 @@ import torch.distributed as dist
 from ..config import RenderConfig
 from ..ops import binning, raster, raster_ref
 from ..ops.binsort import expand_pairs, grouped_limits_ok
+from ..ops.frontend import frame_planes, frame_planes_plain, pose_triangles
 from ..ops.illumination import lambert_shade
 from ..ops.projection import project_to_screen, visibility_masks
-from ..ops.transforms import _matmul3, rotation_matrix
+from ..ops.transforms import rotation_matrix
 
 POSTS = ("f32", "u8")
 
@@ -84,15 +87,20 @@ def turntable_angles(n_views: int) -> torch.Tensor:
     return torch.from_numpy(np.stack([zeros, deg, zeros], axis=1))
 
 
+def _pose_matrix(angles, post_shift) -> torch.Tensor:
+    """(4, 3) host float32: ``Rᵀ`` of the Euler angles (degrees) over the
+    shift, the pose ``frontend.pose_triangles`` and kernel F1 apply."""
+    rt = rotation_matrix(_host_f32(angles), device="cpu").T
+    return torch.cat([rt, torch.from_numpy(_host_f32(post_shift))[None]])
+
+
 def _pose_triangles(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                     angles, post_shift) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate triangles and normals by Euler angles (degrees), then
     translate the triangles: ``v @ Rᵀ + shift`` and ``n @ Rᵀ``
     (``multiview.py:64-77``)."""
-    rt = rotation_matrix(_host_f32(angles), device="cpu").T
-    rt = rt.to(tri_verts.device)
-    shift = torch.as_tensor(_host_f32(post_shift), device=tri_verts.device)
-    return _matmul3(tri_verts, rt) + shift, _matmul3(tri_norms, rt)
+    return pose_triangles(tri_verts, tri_norms,
+                          _pose_matrix(angles, post_shift).to(tri_verts.device))
 
 
 def _norm_light(light_direction) -> Optional[np.ndarray]:
@@ -108,29 +116,23 @@ def _norm_light(light_direction) -> Optional[np.ndarray]:
 
 def _stacked_planes(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
                     config: RenderConfig, light=None, fast: bool = False,
-                    lean: bool = False):
+                    lean: bool = False, backend: str = "cuda"):
     """Pose, cull, project and plane-stage a batch of views, stacked: rows
-    ``(V·T, R)`` view after view, spans on the ``ntx x V·nty`` grid.
-    ``tri_colors=None`` gives geometry-only rows (the demand helpers).
-    Shared by the batch renderer and ``sequence_demand``, as JAX's
+    ``(V·T, R)`` view after view, spans on the ``ntx x V·nty`` grid, and
+    the batch's pair total (0-dim int64) — ``frontend.frame_planes``, one
+    launch of F1 for the batch (``backend="torch"``: its plain version).
+    ``tri_colors=None`` gives geometry-only rows (the demand helpers);
+    ``fast`` bakes Lambert into the colours with the POSED normals; a
+    ``lean`` (unlit u8) batch never reads the normal channels. Shared by
+    the batch renderer and ``sequence_demand``, as JAX's
     ``_batched_view_spans`` is, so the two see the same pairs."""
-    nty = -(-config.height // raster.TILE_H)
-    parts = []
-    for v in range(len(angles_b)):
-        pv, pn = _pose_triangles(tri_verts, tri_norms, angles_b[v], shifts_b[v])
-        degenerate, backfacing = visibility_masks(pv, pn)
-        colors, normals = tri_colors, pn
-        if tri_colors is None:
-            normals = None
-        elif fast:          # Gouraud: Lambert baked with the POSED normals
-            colors, normals = lambert_shade(tri_colors, pn, light), None
-        elif lean:          # unlit u8: the normal channels are never read
-            normals = None
-        rows, tx0, cx, ty0, cy, counts = binning.plane_data(
-            project_to_screen(pv, config), ~degenerate & ~backfacing, config,
-            raster.TILE_H, raster.TILE_W, colors=colors, normals=normals)
-        parts.append((rows, tx0, cx, ty0 + v * nty, cy, counts))
-    return tuple(torch.cat(xs) for xs in zip(*parts))
+    poses = torch.stack([_pose_matrix(a, s) for a, s in zip(angles_b, shifts_b)])
+    n_attrs = (0 if tri_colors is None else 3 if (fast or lean)
+               else binning.N_ATTRS)
+    planes = frame_planes if backend == "cuda" else frame_planes_plain
+    return planes(tri_verts, tri_norms, tri_colors, config, n_attrs,
+                  raster.TILE_H, raster.TILE_W,
+                  shade=light if fast else None, poses=poses)
 
 
 def _render_view_batch(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
@@ -144,10 +146,10 @@ def _render_view_batch(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
     ntx, nty = -(-w // raster.TILE_W), -(-h // raster.TILE_H)
     lean = post == "u8" and light is None and not fast
     n_attrs = 3 if (fast or lean) else binning.N_ATTRS
-    rows, tx0, cx, ty0, cy, counts = _stacked_planes(
+    rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
         tri_verts, tri_norms, tri_colors, angles_b, shifts_b, config,
-        light=light, fast=fast, lean=lean)
-    total = int(counts.sum())
+        light=light, fast=fast, lean=lean, backend=backend)
+    total = int(total)                      # the batch's one host read
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, group,
                              backend, n_views)
     rast = raster.raster_tiles if backend == "cuda" else raster.raster_tiles_plain
@@ -274,10 +276,10 @@ def sequence_demand(tri_verts, tri_norms, angles, shifts,
                                 view_batch * raster.view_row_stride(nty, group))
     peak = act = 0
     for b0 in range(0, n, view_batch):
-        _rows, tx0, cx, ty0, cy, counts = _stacked_planes(
+        _rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
             tri_verts, tri_norms, None, angles[b0:b0 + view_batch],
             shifts[b0:b0 + view_batch], config)
-        total = int(counts.sum())
+        total = int(total)
         peak = max(peak, total)
         if grouped:
             _tri, tile = expand_pairs(tx0, cx, ty0, cy, ntx, total)
@@ -471,18 +473,22 @@ def _merge_partials(color: torch.Tensor, z: torch.Tensor,
     in its order: the minimum depth over the shards, then the lowest shard
     among the exact-depth winners, whose colour and normal reach every rank
     as a SUM of ``where(win, x, 0.0)`` (with two or more ranks a winner's
-    -0.0 reads +0.0, as in JAX). Returns (colour, z (H, W, 1), normal)."""
+    -0.0 reads +0.0, as in JAX). The merged z is the winner's own, sign
+    and all, as JAX's ``pmin`` gives it: a SUM of ``where(win, z, -0.0)``,
+    exact in any order of reduction (``w + -0.0 == w`` for every ``w``,
+    ±0 included), carried in the same buffer as colour and normal — three
+    all-reduces. Returns (colour, z (H, W, 1), normal)."""
     zmin = z[..., 0].clone(memory_format=torch.contiguous_format)
     dist.all_reduce(zmin, dist.ReduceOp.MIN, group=group)
     cand = z[..., 0] == zmin
     smin = torch.where(cand, rank, INT32_MAX).to(torch.int32)
     dist.all_reduce(smin, dist.ReduceOp.MIN, group=group)
     win = (cand & (smin == rank))[..., None]
-    color = torch.where(win, color, 0.0)
-    normal = torch.where(win, normal, 0.0)
-    dist.all_reduce(color, dist.ReduceOp.SUM, group=group)
-    dist.all_reduce(normal, dist.ReduceOp.SUM, group=group)
-    return color, zmin[..., None], normal
+    merged = torch.cat([torch.where(win, color, 0.0),
+                        torch.where(win, z, -0.0),
+                        torch.where(win, normal, 0.0)], dim=-1)
+    dist.all_reduce(merged, dist.ReduceOp.SUM, group=group)
+    return tuple(x.contiguous() for x in merged.split((3, 1, 3), dim=-1))
 
 
 def render_triangle_sharded(tri_verts, tri_norms, tri_colors,

@@ -1,7 +1,8 @@
 """Kernels B1 (raster, single-view and view-batched), B2 (sort) and B4
 (counting-sort binning) on the radix-sort core, B5 (group-interleaved
-binning) and the probes P1 (epi_prims) and P2 (vpu_cal) against their
-plain PyTorch versions, and the sweep path on both backends.
+binning), F1 (the frame's front end) and the probes P1 (epi_prims) and P2
+(vpu_cal) against their plain PyTorch versions, and the sweep path on both
+backends.
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 import chip_smoke
+from cython3dmodelrenderer_tpu_torch import Model
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
-                                                 binsort_grouped, raster, sort)
+                                                 binsort_grouped, frontend,
+                                                 raster, sort)
 from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
                                                             visibility_masks)
 from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
@@ -266,7 +269,7 @@ def batch_inputs(cuda, h, w, n_views, t, seed, n_attrs):
     cfg = RenderConfig(height=h, width=w, fov=45)
     angles = multiview.turntable_angles(n_views)
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (n_views, 3))
-    rows, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+    rows, tx0, cx, ty0, cy, counts, _total = multiview._stacked_planes(
         tv, tn, tc, angles, shifts, cfg, lean=n_attrs == 3)
     ntx, nty = -(-w // 32), -(-h // 16)
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
@@ -297,7 +300,7 @@ def test_raster_kernel_view_batch(cuda, n_views, h, w, post):
     for a, b in zip(got, want):
         assert a.shape[:3] == (n_views, h, w) and torch.equal(a, b)
     for v in range(n_views):
-        r1, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+        r1, tx0, cx, ty0, cy, counts, _total = multiview._stacked_planes(
             tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg,
             lean=post == "u8")
         bins = raster.route_bins(tx0, cx, ty0, cy, kw["ntx"], kw["nty"],
@@ -451,3 +454,60 @@ def test_epi_prims_refuses_too_much_shared_memory(cuda):
         epi_prims._launch("epi_cur8", 2, x, smat, smem_bytes=232448 + 4096)
     with pytest.raises(RuntimeError, match="failed to launch"):
         epi_prims._launch("epi_cur8", 2, x, smat, smem_bytes=1024)
+
+
+def frontend_scene(cuda, name):
+    """(vertices, normals, colours, height, width, poses) of an F1 case."""
+    if name.startswith("edge"):
+        arrays = chip_smoke.frontend_edge_scene(cuda)
+        if name == "edge_posed":
+            return (*arrays, 1024, 1024, chip_smoke.sweep_poses(3))
+        return (*arrays, 72, 100, None) if name == "edge72x100" else (
+            *arrays, 1024, 1024, None)
+    if name == "empty":
+        return (*(torch.zeros((0, 3, 3), device=cuda) for _ in range(3)),
+                64, 64, None)
+    make = (chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
+                                        chip_smoke.TRI_SPHERE_RINGS)
+            if name == "sphere16k"
+            else chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS))
+    model = chip_smoke.posed(Model(*make, device=cuda), True)
+    return (model.vertices_by_triangles, model.normals_by_triangles,
+            chip_smoke.seeded_colors(model), 1024, 1024, None)
+
+
+@pytest.mark.parametrize("variant", chip_smoke.FRONTEND_VARIANTS,
+                         ids=lambda v: v[0])
+@pytest.mark.parametrize("scene", ["edge1024", "edge72x100", "edge_posed",
+                                   "empty", "sphere16k", "torus262k"])
+def test_frontend_kernel_matches_plain(cuda, scene, variant):
+    """F1 equals its plain version bit for bit in every output (NaN bits
+    included) and itself on a second call; one launch a call with
+    triangles."""
+    _tag, n_attrs, fast = variant
+    tv, tn, tc, h, w, poses = frontend_scene(cuda, scene)
+    cfg = RenderConfig(height=h, width=w, fov=chip_smoke.FOV)
+    args = (tv, tn, tc, cfg, n_attrs, raster.TILE_H, raster.TILE_W)
+    kwargs = dict(shade=light_direction() if fast else None, poses=poses)
+    before = frontend.frame_planes.launches
+    got = frontend.frame_planes(*args, **kwargs)
+    again = frontend.frame_planes(*args, **kwargs)
+    want = frontend.frame_planes_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert frontend.frame_planes.launches == before + 2 * (tv.shape[0] > 0)
+    for a, b, c in zip(got, again, want):
+        assert a.device.type == "cuda"
+        assert chip_smoke.same_bits(a, c) and chip_smoke.same_bits(a, b)
+
+
+def test_frontend_render_frame_launches_once(cuda):
+    """A frame on the cuda backend launches F1 once and B1 once."""
+    tris, colors, normals = random_scene(400, 13)
+    cfg = RenderConfig(height=256, width=192, fov=50)
+    args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
+    before = (frontend.frame_planes.launches, raster.raster_tiles.launches)
+    raster.render_frame(*args, cfg, post="lambert_u8", light=light_direction(),
+                        backend="cuda", group=16)
+    torch.cuda.synchronize()
+    assert (frontend.frame_planes.launches, raster.raster_tiles.launches) == (
+        before[0] + 1, before[1] + 1)

@@ -199,7 +199,7 @@ def test_view_batched_counting_route(jax_out, jax_rotations):
     tv, tn, tc = torch_scene(*tiny_scene(24, 9))
     angles = multiview.turntable_angles(2)
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
-    rows, tx0, cx, ty0, cy, counts = multiview._stacked_planes(
+    rows, tx0, cx, ty0, cy, counts, _total = multiview._stacked_planes(
         tv, tn, tc, angles, shifts, CONFIG)
     ntx, nty = 2, 4
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
@@ -378,7 +378,7 @@ def test_raster_view_batch_equals_single_views():
     ntx, nty = 4, 5
     light = multiview._norm_light((0, 0, 1))
     stacked = multiview._stacked_planes(tv, tn, tc, angles, shifts, cfg)
-    rows, tx0, cx, ty0, cy, counts = stacked
+    rows, tx0, cx, ty0, cy, counts, _total = stacked
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
                              16, "torch", n_views=2)
     gb, img = raster.raster_tiles(rows, *bins, ntx, nty, 72, 100, 6,
@@ -386,7 +386,7 @@ def test_raster_view_batch_equals_single_views():
                                   n_views=2)
     assert img.shape == (2, 72, 100, 3) and gb[1].shape == (2, 72, 100, 1)
     for v in range(2):
-        r1, tx1, cx1, ty1, cy1, c1 = multiview._stacked_planes(
+        r1, tx1, cx1, ty1, cy1, c1, _t1 = multiview._stacked_planes(
             tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg)
         bins1 = raster.route_bins(tx1, cx1, ty1, cy1, ntx, nty,
                                   int(c1.sum()), 16, "torch")

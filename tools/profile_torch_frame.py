@@ -12,8 +12,18 @@ sphere, or the 262,144-triangle displaced torus) at ``--size``² with
 GuroIllumination and NoIllumination through ``Renderer.render``, traces
 ``--frames`` warm frames with ``torch.profiler``, and prints per frame:
 wall time, summed device-kernel time (and so the device's idle share),
-the number of kernel launches, and the kernels ranked by device time
-(``--backend ratio``: the frames of the ratio-form rasterizer).
+the number of device operations, the host's launch calls by stage, the
+kernels ranked by device time (``--backend ratio``: the frames of the
+ratio-form rasterizer), and the spread of ``--frames`` frames timed one
+by one without the profiler (host clock, each fenced by a synchronize).
+The stages are ``record_function`` ranges put around the port's calls
+while the profiler runs (``stage_ranges``): the front end (F1's wrapper
+``frame_planes``, or in a tree without it the plain ops it replaced; the
+sweep's ``_stacked_planes``), bins (``route_bins``), raster
+(``raster_tiles``), the rest of ``render_frame`` / ``_render_view_batch``
+("read": the pair-total read and the active-tile count) and the rest of
+``Renderer.render`` / ``render_sequence`` ("prelude"); each launch call
+counts in the innermost range around it.
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
@@ -44,8 +54,12 @@ included) beside the unsharded G-buffer frame they merge.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
+import collections
+import contextlib
+import functools
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -61,29 +75,125 @@ from cython3dmodelrenderer_tpu_torch.measure import (  # noqa: E402
     device_entries, device_us, smi)
 
 
-def trace(label, fn, reps, per, out):
-    """Profile ``reps`` warm calls of ``fn``; print per-``per`` numbers."""
+#: host calls that enqueue device work (the CUDA runtime and `cu*` calls)
+LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaMemsetAsync",
+    "cudaMemcpyAsync", "cudaMemset", "cudaMemcpy"))
+#: a stage range's name -> the label of the launches innermost in it
+STAGE_LABELS = {"frame": "prelude", "render_frame": "read",
+                "front_end": "front end", "bins": "bins", "raster": "raster"}
+
+
+def stage_targets():
+    """(range, owner, attribute) of every call ``stage_ranges`` wraps. The
+    front end is F1's wrapper where the tree has it, else the plain ops it
+    replaced (so the same script measures the parent commit)."""
+    from cython3dmodelrenderer_tpu_torch.ops import binning, raster
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+
+    front = ([(raster, "frame_planes")] if hasattr(raster, "frame_planes")
+             else [(raster, "visibility_masks"), (raster, "project_to_screen"),
+                   (binning, "plane_data")])
+    return ([("frame", pt.Renderer, "render"),
+             ("frame", pt.Renderer, "render_sequence"),
+             ("render_frame", raster, "render_frame"),
+             ("render_frame", multiview, "_render_view_batch")]
+            + [("front_end", owner, attr) for owner, attr in
+               front + [(multiview, "_stacked_planes")]]
+            + [("bins", raster, "route_bins"),
+               ("raster", raster, "raster_tiles")])
+
+
+@contextlib.contextmanager
+def stage_ranges():
+    """Wrap each of ``stage_targets`` in a ``record_function`` range named
+    ``stage:<range>``; restore them on exit."""
+    from torch.profiler import record_function
+
+    saved = []
+    for stage, owner, attr in stage_targets():
+        fn = getattr(owner, attr)
+
+        def wrapped(*args, _fn=fn, _name=f"stage:{stage}", **kwargs):
+            with record_function(_name):
+                return _fn(*args, **kwargs)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, functools.wraps(fn)(wrapped))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def stage_launches(prof, n):
+    """Host launch calls a frame (or view) by stage: each counted in the
+    innermost ``stage:`` range around its start."""
+    events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    ranges = [(e.time_range.start, e.time_range.end, e.name[len("stage:"):])
+              for e in events if e.name.startswith("stage:")]
+    counts = collections.Counter()
+    for e in events:
+        if e.name not in LAUNCH_CALLS:
+            continue
+        t = e.time_range.start
+        inner = [r for r in ranges if r[0] <= t <= r[1]]
+        stage = (min(inner, key=lambda r: r[1] - r[0])[2] if inner
+                 else "outside")
+        counts[STAGE_LABELS.get(stage, stage)] += 1
+    return {k: v / n for k, v in sorted(counts.items())}
+
+
+def spread(fn, reps, per):
+    """ms per call / ``per`` of ``reps`` calls timed one by one (host clock,
+    each fenced by a synchronize), without the profiler."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / per * 1e3)
+    q = statistics.quantiles(times, n=4) if len(times) > 1 else times * 3
+    return {"median": statistics.median(times), "q1": q[0], "q3": q[2],
+            "min": min(times), "max": max(times), "n": reps}
+
+
+def trace(label, fn, reps, per, out, stages=False):
+    """Profile ``reps`` warm calls of ``fn``; print per-``per`` numbers
+    (``stages``: the launch calls by stage, and the unprofiled spread)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / (reps * per) * 1e3
+    with contextlib.ExitStack() as stack:
+        if stages:
+            stack.enter_context(stage_ranges())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / (reps * per) * 1e3
     prof.export_chrome_trace(os.path.join(out, f"{label.replace('/', '_')}.json"))
-    kernels = device_entries(prof)
+    # the stage ranges' device-side annotations span whole stages: not work
+    kernels = [e for e in device_entries(prof) if not e.key.startswith("stage:")]
     n = reps * per
     dev = sum(device_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=lambda e: -device_us(e))[:12]
-    print(json.dumps({
+    result = {
         "frame": label, "wall_ms": wall, "device_ms": dev,
         "device_idle_share": 1.0 - dev / wall if wall else None,
         "kernel_launches": sum(e.count for e in kernels) / n,
         "top": [{"kernel": e.key[:80], "ms": device_us(e) / n / 1e3,
-                 "calls": e.count / n} for e in top]}))
+                 "calls": e.count / n} for e in top]}
+    if stages:
+        result["stage_launch_calls"] = stage_launches(prof, n)
+        result["launch_calls"] = sum(result["stage_launch_calls"].values())
+        result["spread_ms"] = spread(fn, reps, per)
+    print(json.dumps(result))
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=15))
 
@@ -296,14 +406,14 @@ def main():
             illum, pt.SimpleIterator, args.size, args.size)
         if not args.sweep:
             trace(f"frame_{tag}/{name}", lambda: renderer.render(model),
-                  args.frames, 1, args.out)
+                  args.frames, 1, args.out, stages=True)
             continue
         centred = chip_smoke.turntable_model("cuda")
         for vb in (int(x) for x in args.sweep.split(",")):
             sweep = chip_smoke.sweep_args(renderer, centred, vb)
             trace(f"sweep_{tag}/{name}/vb{vb}",
                   lambda: renderer.render_sequence(**sweep), args.frames,
-                  chip_smoke.SWEEP_VIEWS, args.out)
+                  chip_smoke.SWEEP_VIEWS, args.out, stages=True)
 
 
 if __name__ == "__main__":
