@@ -29,7 +29,9 @@ Phases (one line each; any failure exits nonzero):
              channels and fast shade, on every scene at 1024², on a
              seeded edge scene (a vertex on the camera plane, a NaN x, a
              degenerate, a backfacing, an off-screen and a huge clipped
-             triangle) at 1024² and 72 x 100 and posed in 3 views, and on
+             triangle) at 1024² and 72 x 100 and posed in 3 views, cut to
+             1, 127, 128, 129, 257 and 259 triangles (around F1's block of
+             128) and posed in 3 views at 45 and 200, and on
              no triangles (phases 6 and 7 add the large frames and the
              sweep's posed batches of 4 and 8 views);
 4. main    — Renderer.render at 1024², fov 45, with GuroIllumination and
@@ -43,8 +45,11 @@ Phases (one line each; any failure exits nonzero):
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
              (CUDA events), and each kernel against its plain version (B1
-             and F1 also device ms and device operations a call; F1 at
-             sphere16k's 6 and 3 channels);
+             and F1 also device ms and device operations a call, F1's
+             required to be 1 (2 for the sweep's batch: the poses' copy),
+             and F1's bound fraction; F1 at sphere16k's 6 and 3 channels;
+             F1's built threads, shared memory, registers and spills
+             against its launch plan in phase 3);
              B2 at sphere16k@1024²'s 17,473 pair keys beside torch.sort,
              with device ms and device operations a call (torch.profiler);
 6. large   — the un-grouped (counting-sort) path: B4 against its plain
@@ -213,6 +218,9 @@ FRONTEND_VARIANTS = (("geometry", 0, False), ("lean", 3, False),
                      ("full", 6, False), ("fast", 3, True))
 FRONTEND_OUTPUTS = ("rows", "tx0", "cx", "ty0", "cy", "counts", "total")
 FRONTEND_EDGE_FRAMES = ((SIZE, SIZE), (72, 100))
+# triangle counts around F1's block of 128: one, a block less one, a block,
+# a block and one, two and one, and a 3-row tail (no whole 16-byte chunks)
+FRONTEND_COUNTS = (1, 127, 128, 129, 257, 259)
 
 
 class SmokeFailure(Exception):
@@ -765,7 +773,9 @@ def check_frontend(tag, args, kwargs):
 def time_frontend(tag, args, kwargs):
     """F1 against its plain version: CUDA-event ms a call of each, device
     ms and device operations a call of each (torch.profiler), and F1's
-    bound on these inputs."""
+    bound on these inputs and the share of it the kernel reaches. F1 is
+    one device operation a call (two for posed views made on the host:
+    the poses' copy)."""
     from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
                                                          profile_calls)
     from cython3dmodelrenderer_tpu_torch.ops.frontend import (
@@ -777,25 +787,54 @@ def time_frontend(tag, args, kwargs):
     def plain():
         return frame_planes_plain(*args, **kwargs)
 
-    dev_ms, ops = profile_calls(kernel, 20)
+    # a profiler session now and then loses some of the calls' device
+    # events (0.65 or 1.95 operations a call, or none at all): take the
+    # first session that recorded a whole number of operations a call
+    for _ in range(5):
+        dev_ms, ops = profile_calls(kernel, 20)
+        if ops is not None and float(ops).is_integer():
+            break
     plain_dev_ms, plain_ops = profile_calls(plain, 10)
     out = {"ms": cuda_time_ms(kernel, 100), "plain_ms": cuda_time_ms(plain, 20),
            "device_ms": dev_ms, "device_ops": ops,
            "plain_device_ms": plain_dev_ms, "plain_device_ops": plain_ops}
     out["bound"] = frontend_bound(args, kwargs, kernel())
+    want_ops = 1 + (kwargs.get("poses") is not None
+                    and kwargs["poses"].device.type == "cpu")
+    require(ops == want_ops, f"F1 {tag}: {ops} device operations a call, "
+            f"not {want_ops}")
+    out["bound_fraction"] = out["bound"][0] / dev_ms
     say("timing", f"F1 {tag}: kernel {out['ms']:.4f} ms a call (CUDA events),"
-        f" device {dev_ms} ms in {ops} device operations; plain chain "
-        f"{out['plain_ms']:.4f} ms, device {plain_dev_ms} ms in {plain_ops} "
-        f"operations; bound {out['bound'][0]:.6f} ms ({out['bound'][1]})")
+        f" device {dev_ms} ms in {ops} device operations (want {want_ops}); "
+        f"plain chain {out['plain_ms']:.4f} ms, device {plain_dev_ms} ms in "
+        f"{plain_ops} operations; bound {out['bound'][0]:.6f} ms "
+        f"({out['bound'][1]}), {out['bound_fraction']:.4f} of it by device ms")
     return out
 
 
 def phase_kernels_frontend(scenes, light):
     """F1 against its plain version: every scene at SIZE², the edge scene
-    at FRONTEND_EDGE_FRAMES and posed in three views, and no triangles,
-    each in every variant (0, 3, 6 channels, fast shade)."""
+    at FRONTEND_EDGE_FRAMES, posed in three views, cut to the triangle
+    counts around a block (FRONTEND_COUNTS) and posed in three views at
+    T = 45 and 200 (blocks across view boundaries), and no triangles,
+    each in every variant (0, 3, 6 channels, fast shade); the built
+    kernel's launch constants against the wrapper's plan."""
     import torch
 
+    from cython3dmodelrenderer_tpu_torch.ops import frontend
+
+    for n_attrs in (0, 3, 6):
+        got = frontend.kernel_constants(n_attrs)
+        plan = frontend.frontend_plan(16128, n_attrs)
+        require(got["threads"] == plan.threads
+                and got["smem_bytes"] == plan.smem_bytes,
+                f"F1 C={n_attrs}: built constants {got} against the plan "
+                f"{plan}")
+        say("kernels", f"F1 C={n_attrs}: {got['threads']} threads a block, "
+            f"{got['smem_bytes']} bytes of shared memory, "
+            f"{got['registers']} registers and {got['local_bytes']} local "
+            f"(spilled) bytes a thread; sphere16k's 16,128 triangles in "
+            f"{plan.blocks} blocks")
     edge = frontend_edge_scene("cuda")
     empty = tuple(torch.zeros((0, 3, 3), device="cuda") for _ in range(3))
     cases = [(f"{name}@{SIZE}", (model.vertices_by_triangles,
@@ -806,6 +845,10 @@ def phase_kernels_frontend(scenes, light):
               for h, w in FRONTEND_EDGE_FRAMES]
     cases += [(f"edge posed x3 @{SIZE}", edge, SIZE, SIZE, sweep_poses(3)),
               (f"empty@{SIZE}", empty, SIZE, SIZE, None)]
+    cases += [(f"edge[:{t}]@{SIZE}", tuple(a[:t] for a in edge), SIZE, SIZE,
+               None) for t in FRONTEND_COUNTS]
+    cases += [(f"edge[:{t}] posed x3 @{SIZE}", tuple(a[:t] for a in edge),
+               SIZE, SIZE, sweep_poses(3)) for t in (45, 200)]
     for tag, arrays, h, w, poses in cases:
         for vtag, n_attrs, fast in FRONTEND_VARIANTS:
             args, kw = frontend_call(*arrays, h, w, n_attrs, fast, light,

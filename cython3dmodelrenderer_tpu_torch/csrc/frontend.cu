@@ -28,35 +28,68 @@
 // Every multiply and add rounds on its own: cuda_build's NVCC_FLAGS carry
 // -fmad=false, and nvcc's defaults give IEEE division and square root.
 //
-// Outputs: rows (n, 16 + 3 * n_attrs) f32, spans (5, n) int32 = tx0, cx,
-// ty0 + v * nty, cy, cx * cy, and the int64 pair total, summed by integer
-// atomics (order-free) after a memset in the launcher.
+// Outputs: rows (n, 16 + 3 * n_attrs) f32, allocated in whole blocks of
+// kThreads rows (the caller returns the first n), spans (5, n) int32 =
+// tx0, cx, ty0 + v * nty, cy, cx * cy, and the int64 pair total.
 //
 // What bounds it on an H100: each (view, triangle) reads 72 bytes of
 // vertices and normals (108 with colours) and writes a 64-136-byte row and
-// 20 bytes of spans, against ~200-300 f32 instructions: ~264 bytes a
-// triangle at 6 channels, so the memory bound (~1.3 us at 16,128
-// triangles) is far below the launch latency. The design is one pass with
-// no scratch memory, each input read once and each output written once.
-// Rows are stored row by row (each thread's 64-136 bytes, uncoalesced
-// across the warp); staging them through shared memory is later work.
+// 20 bytes of spans, against ~200-300 f32 instructions and ~21 IEEE
+// divisions: ~264 bytes a triangle at 6 channels, so bytes bound it
+// (0.0207 ms at 262,144 triangles; at 16,128, 1.3 us, below a launch's
+// latency, where the chain of divisions a thread runs sets the time).
+// The design moves every byte in whole sectors:
+//  - a block of kThreads (view, triangle)s first copies its triangles'
+//    vertices, normals and colours (one run of kThreads * 36 bytes each,
+//    wrapping to the arrays' start at a view boundary) into shared memory
+//    with coalesced 4-byte loads; a thread reads its 9 floats at a stride
+//    of 9 words, free of bank conflicts;
+//  - each thread stages its row in shared memory (float4 stores for 16
+//    columns, float2 for 34, floats for 25: at most 4-way conflicts, none
+//    at 25 or 34), and one thread hands the block's contiguous
+//    kThreads * row bytes to the copy engine (cp.async.bulk, TMA) after
+//    fence.proxy.async; it waits for the engine's read before the block
+//    exits; spans are stored coalesced, a word a thread;
+//  - 128 threads a block give 16,128 triangles 126 blocks on the 132 SMs
+//    and cap the static shared memory at 31,264 bytes (7 blocks an SM);
+//  - the pair total comes in the same launch: each block adds its count to
+//    a cached accumulator (integer atomics: exact in any order), fences
+//    and takes a ticket; the last block writes the total and zeroes the
+//    accumulator and the ticket for the next call (no memset).
+// Measured on an H100 (PERF.md §6), 262,144 triangles at 6
+// channels reach 0.56 of the bytes bound: the row copy streams at ~2.5
+// TB/s, but each block loads, computes and stores in turn, and 7 blocks
+// an SM keep too few input loads in flight to cover the rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowHead = 16;         // 12 plane coefficients + the bbox
+constexpr int kTriFloats = 9;        // a triangle's 3 x 3 floats
 
 struct Frame {
   float pm[4][4];          // the row-vector projection matrix
   float half_w, half_h;    // width / 2, height / 2
   int width, height, tile_w, tile_h, nty;
-  int n_attrs;             // 0, 3 (colours) or 6 (colours, normals)
   int shade;               // bake Lambert into the vertex colours
   float lx, ly, lz;        // the pre-negated unit light
+};
+
+// A block's shared memory: the staged rows first (the bulk copy's source,
+// 128-byte aligned), then the inputs, then the warps' pair counts.
+template <int kAttrs>
+struct Staging {
+  static constexpr int kWidth = kRowHead + 3 * kAttrs;
+  static constexpr int kInputs = kAttrs > 0 ? 3 : 2;
+  float rows[kThreads * kWidth];
+  float in[kInputs][kThreads * kTriFloats];
+  long long pairs[kWarps];
 };
 
 // torch.amin / torch.amax over three values: NaN when any is NaN
@@ -93,38 +126,94 @@ __device__ __forceinline__ void coeffs(float xa, float ya, float xb, float yb,
   *c = ((yb - yc) * xc - (xb - xc) * yc) / d;
 }
 
+// A thread's row into its staging slot (16-byte aligned at 16 columns,
+// 8-byte at 34) in the widest stores the alignment allows.
+template <int W>
+__device__ __forceinline__ void stage_row(float* dst, const float (&v)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W; c += 4)
+      *reinterpret_cast<float4*>(dst + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+  } else if constexpr (W % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < W; c += 2)
+      *reinterpret_cast<float2*>(dst + c) = make_float2(v[c], v[c + 1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) dst[c] = v[c];
+  }
+}
+
+template <int kAttrs>
 __global__ void __launch_bounds__(kThreads)
 frontend_kernel(const float* __restrict__ verts,
                 const float* __restrict__ norms,
                 const float* __restrict__ colors,
-                const float* __restrict__ poses, int n_tris, int n_views,
+                const float* __restrict__ poses, int n_tris, long long n,
                 Frame f, float* __restrict__ rows, int* __restrict__ spans,
-                unsigned long long* __restrict__ total) {
-  const long long n = static_cast<long long>(n_tris) * n_views;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
+                long long* __restrict__ total,
+                unsigned long long* __restrict__ sync) {
+  using S = Staging<kAttrs>;
+  constexpr int kWidth = S::kWidth;
+  __shared__ __align__(128) S s;
+  const int tid = threadIdx.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int k = static_cast<int>(
+      n - i0 < kThreads ? n - i0 : static_cast<long long>(kThreads));
+  int view0 = 0;                     // the block's first (view, triangle)
+  long long t0 = 0;
+  if (n_tris > 0) {
+    view0 = static_cast<int>(i0 / n_tris);
+    t0 = i0 - static_cast<long long>(view0) * n_tris;
+  }
+
+  // the block's triangles: one run of k * 9 floats from t0 * 9, wrapping
+  // to the arrays' start at each view boundary; coalesced 4-byte loads
+  const long long run = static_cast<long long>(kTriFloats) * n_tris;
+#pragma unroll
+  for (int r = 0; r < kTriFloats; ++r) {
+    const int e = r * kThreads + tid;
+    if (e < k * kTriFloats) {
+      long long src = t0 * kTriFloats + e;
+      while (src >= run) src -= run;
+      s.in[0][e] = verts[src];
+      s.in[1][e] = norms[src];
+      if constexpr (kAttrs > 0) s.in[2][e] = colors[src];
+    }
+  }
+  __syncthreads();
+
   long long pairs = 0;
-  if (i < n) {
-    const int view = static_cast<int>(i / n_tris);
-    const long long t = i - static_cast<long long>(view) * n_tris;
+  if (tid < k) {
+    const long long i = i0 + tid;
+    long long t = t0 + tid;
+    int view = view0;
+    while (t >= n_tris) {
+      t -= n_tris;
+      ++view;
+    }
+    const float* vin = s.in[0] + tid * kTriFloats;
+    const float* nin = s.in[1] + tid * kTriFloats;
     float p[3][3], nr[3][3];
-    for (int k = 0; k < 3; ++k)
+    for (int k3 = 0; k3 < 3; ++k3)
       for (int j = 0; j < 3; ++j) {
-        p[k][j] = verts[t * 9 + k * 3 + j];
-        nr[k][j] = norms[t * 9 + k * 3 + j];
+        p[k3][j] = vin[k3 * 3 + j];
+        nr[k3][j] = nin[k3 * 3 + j];
       }
     if (poses != nullptr) {          // q[r * 3 + c] = R^T[r][c], q[9 + j] = shift
       const float* q = poses + view * 12;
-      for (int k = 0; k < 3; ++k) {
+      for (int k3 = 0; k3 < 3; ++k3) {
         float pv[3], nv[3];
         for (int j = 0; j < 3; ++j) {
-          pv[j] = ((p[k][0] * q[j] + p[k][1] * q[3 + j]) + p[k][2] * q[6 + j])
+          pv[j] = ((p[k3][0] * q[j] + p[k3][1] * q[3 + j]) + p[k3][2] * q[6 + j])
                   + q[9 + j];
-          nv[j] = (nr[k][0] * q[j] + nr[k][1] * q[3 + j]) + nr[k][2] * q[6 + j];
+          nv[j] = (nr[k3][0] * q[j] + nr[k3][1] * q[3 + j])
+                  + nr[k3][2] * q[6 + j];
         }
         for (int j = 0; j < 3; ++j) {
-          p[k][j] = pv[j];
-          nr[k][j] = nv[j];
+          p[k3][j] = pv[j];
+          nr[k3][j] = nv[j];
         }
       }
     }
@@ -138,14 +227,14 @@ frontend_kernel(const float* __restrict__ verts,
 
     // projection.project_to_screen
     float sx[3], sy[3], sz[3];
-    for (int k = 0; k < 3; ++k) {
-      const float x = p[k][0], y = p[k][1], z = p[k][2];
+    for (int k3 = 0; k3 < 3; ++k3) {
+      const float x = p[k3][0], y = p[k3][1], z = p[k3][2];
       float h[4];
       for (int j = 0; j < 4; ++j)
         h[j] = ((x * f.pm[0][j] + y * f.pm[1][j]) + z * f.pm[2][j]) + f.pm[3][j];
-      sx[k] = (h[0] / h[3] + 1.0f) * f.half_w;
-      sy[k] = (h[1] / h[3] + 1.0f) * f.half_h;
-      sz[k] = h[2] / h[3];
+      sx[k3] = (h[0] / h[3] + 1.0f) * f.half_w;
+      sy[k3] = (h[1] / h[3] + 1.0f) * f.half_h;
+      sz[k3] = h[2] / h[3];
     }
 
     // binning.plane_data
@@ -160,8 +249,7 @@ frontend_kernel(const float* __restrict__ verts,
     const bool nonempty = active && xr > xl && yr > yl;
     if (!nonempty) xl = xr = yl = yr = 0;
 
-    const int width = kRowHead + 3 * f.n_attrs;
-    float* row = rows + i * width;
+    float row[kWidth];
     row[0] = a0; row[1] = b0; row[2] = c0;
     row[3] = a1; row[4] = b1; row[5] = c1;
     row[6] = a2; row[7] = b2; row[8] = c2;
@@ -172,33 +260,34 @@ frontend_kernel(const float* __restrict__ verts,
     row[13] = static_cast<float>(xr);
     row[14] = static_cast<float>(yl);
     row[15] = static_cast<float>(yr);
-    if (f.n_attrs > 0) {
+    if constexpr (kAttrs > 0) {
+      const float* cin = s.in[2] + tid * kTriFloats;
       float val[3][6];                // per vertex: B G R [nx ny nz]
-      for (int k = 0; k < 3; ++k) {
-        float s = 1.0f;
+      for (int k3 = 0; k3 < 3; ++k3) {
+        float sh = 1.0f;
         if (f.shade) {                // illumination.lambert_shade
-          const float nx = nr[k][0], ny = nr[k][1], nz = nr[k][2];
+          const float nx = nr[k3][0], ny = nr[k3][1], nz = nr[k3][2];
           const float dot = ((nx * f.lx + 0.0f) + ny * f.ly) + nz * f.lz;
           const float norm = sqrtf((nx * nx + ny * ny) + nz * nz);
-          s = dot / (norm + 1e-6f);
-          s = s < 0.0f ? 0.0f : s;    // a NaN shadow stays NaN
-          s = s > 1.0f ? 1.0f : s;
+          sh = dot / (norm + 1e-6f);
+          sh = sh < 0.0f ? 0.0f : sh;  // a NaN shadow stays NaN
+          sh = sh > 1.0f ? 1.0f : sh;
         }
         for (int ch = 0; ch < 3; ++ch) {
-          const float c = colors[t * 9 + k * 3 + ch];
-          val[k][ch] = f.shade ? c * s : c;
+          const float c = cin[k3 * 3 + ch];
+          val[k3][ch] = f.shade ? c * sh : c;
         }
-        for (int ch = 3; ch < 6; ++ch) val[k][ch] = nr[k][ch - 3];
+        for (int ch = 3; ch < 6; ++ch) val[k3][ch] = nr[k3][ch - 3];
       }
 #pragma unroll
-      for (int ch = 0; ch < 6; ++ch) {   // static indices: val stays in registers
-        if (ch >= f.n_attrs) break;
+      for (int ch = 0; ch < kAttrs; ++ch) {
         const float v0 = val[0][ch], v1 = val[1][ch], v2 = val[2][ch];
         row[kRowHead + 3 * ch] = (a0 * v0 + a1 * v1) + a2 * v2;
         row[kRowHead + 3 * ch + 1] = (b0 * v0 + b1 * v1) + b2 * v2;
         row[kRowHead + 3 * ch + 2] = (c0 * v0 + c1 * v1) + c2 * v2;
       }
     }
+    stage_row<kWidth>(s.rows + tid * kWidth, row);
 
     const int tx0 = nonempty ? floor_div(xl, f.tile_w) : 0;
     const int tx1 = nonempty ? floor_div(xr - 1, f.tile_w) : -1;
@@ -214,8 +303,56 @@ frontend_kernel(const float* __restrict__ verts,
     pairs = static_cast<long long>(cx) * cy;
   }
   for (int o = 16; o > 0; o >>= 1) pairs += __shfl_down_sync(kFull, pairs, o);
-  if ((threadIdx.x & 31) == 0 && pairs != 0)
-    atomicAdd(total, static_cast<unsigned long long>(pairs));
+  if ((tid & 31) == 0) s.pairs[tid >> 5] = pairs;
+  // the staged rows become visible to the copy engine (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (tid != 0) return;
+
+  if (k > 0) {                       // the block's kThreads rows, one copy
+    const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(s.rows));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n\t"
+        "cp.async.bulk.commit_group;"
+        :: "l"(rows + i0 * kWidth), "r"(src),
+           "r"(static_cast<unsigned>(sizeof(s.rows)))
+        : "memory");
+  }
+  long long block_pairs = 0;
+  for (int w = 0; w < kWarps; ++w) block_pairs += s.pairs[w];
+  if (block_pairs != 0)
+    atomicAdd(&sync[0], static_cast<unsigned long long>(block_pairs));
+  __threadfence();                   // the count lands before the ticket
+  if (atomicAdd(&sync[1], 1ull) == gridDim.x - 1ull) {
+    __threadfence();                 // every other block's count is in
+    *total = static_cast<long long>(atomicExch(&sync[0], 0ull));
+    atomicExch(&sync[1], 0ull);
+  }
+  if (k > 0)                         // the engine has read the staging area
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+template <int kAttrs>
+cudaError_t launch(const float* verts, const float* norms,
+                   const float* colors, const float* poses, int n_tris,
+                   long long n, const Frame& f, float* rows, int* spans,
+                   long long* total, unsigned long long* sync,
+                   cudaStream_t s) {
+  const long long blocks = n > 0 ? (n + kThreads - 1) / kThreads : 1;
+  frontend_kernel<kAttrs><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      verts, norms, colors, poses, n_tris, n, f, rows, spans, total, sync);
+  return cudaGetLastError();
+}
+
+template <int kAttrs>
+void kernel_constants(int* out) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, frontend_kernel<kAttrs>);
+  out[0] = kThreads;
+  out[1] = err == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes) : -1;
+  out[2] = err == cudaSuccess ? attr.numRegs : -1;
+  out[3] = err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : -1;
 }
 
 }  // namespace
@@ -229,27 +366,29 @@ const char* kernel_error_string(int err) {
 // verts, norms (n_tris, 3, 3) f32; colors (n_tris, 3, 3) f32 or null when
 // n_attrs == 0; poses (n_views, 4, 3) f32 (R^T over the shift) or null for
 // one unposed view; pm the 16 floats of the projection matrix (host
-// memory). Writes rows (n_views * n_tris, 16 + 3 * n_attrs), spans
-// (5, n_views * n_tris) and the int64 total. Returns a cudaError_t code.
+// memory). Writes rows (n_views * n_tris rounded up to whole blocks of
+// kThreads, 16 + 3 * n_attrs; 16-byte aligned), spans (5, n_views *
+// n_tris) and the int64 total; sync is two zeroed int64 words (the
+// accumulator and the ticket) that the launch leaves zeroed, one pair a
+// stream. Returns a cudaError_t code.
 int frontend_launch(const float* verts, const float* norms,
                     const float* colors, const float* poses, int n_tris,
                     int n_views, const float* pm, int width, int height,
                     int tile_w, int tile_h, int n_attrs, int shade, float lx,
                     float ly, float lz, float* rows, int* spans,
-                    long long* total, int device, void* stream) {
+                    long long* total, unsigned long long* sync, int device,
+                    void* stream) {
   const long long n = static_cast<long long>(n_tris) * n_views;
   if (n_tris < 0 || n_views < 1 || (n_views > 1 && poses == nullptr)
       || !(n_attrs == 0 || n_attrs == 3 || n_attrs == 6)
       || (n > 0 && n_attrs > 0 && colors == nullptr) || (shade && n_attrs == 0)
       || width < 1 || height < 1 || tile_w < 1 || tile_h < 1
-      || n > static_cast<long long>(kThreads) * 0x7fffffffLL)
+      || n > static_cast<long long>(kThreads) * 0x7fffffffLL
+      || total == nullptr || sync == nullptr
+      || (n > 0 && reinterpret_cast<uintptr_t>(rows) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(total, 0, sizeof(long long), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return static_cast<int>(cudaSuccess);
   Frame f;
   for (int r = 0; r < 4; ++r)
     for (int c = 0; c < 4; ++c) f.pm[r][c] = pm[r * 4 + c];
@@ -260,16 +399,38 @@ int frontend_launch(const float* verts, const float* norms,
   f.tile_w = tile_w;
   f.tile_h = tile_h;
   f.nty = (height + tile_h - 1) / tile_h;
-  f.n_attrs = n_attrs;
   f.shade = shade;
   f.lx = lx;
   f.ly = ly;
   f.lz = lz;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  frontend_kernel<<<blocks, kThreads, 0, s>>>(
-      verts, norms, colors, poses, n_tris, n_views, f, rows, spans,
-      reinterpret_cast<unsigned long long*>(total));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_attrs) {
+    case 0:
+      err = launch<0>(verts, norms, colors, poses, n_tris, n, f, rows, spans,
+                      total, sync, s);
+      break;
+    case 3:
+      err = launch<3>(verts, norms, colors, poses, n_tris, n, f, rows, spans,
+                      total, sync, s);
+      break;
+    default:
+      err = launch<6>(verts, norms, colors, poses, n_tris, n, f, rows, spans,
+                      total, sync, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The launch constants the wrapper's plan (ops/frontend.py::frontend_plan)
+// mirrors, for one n_attrs: threads a block, the built kernel's static
+// shared memory, registers a thread and local (spilled) bytes a thread
+// (-1 where the runtime cannot say).
+void frontend_constants(int n_attrs, int* out) {
+  if (n_attrs == 0)
+    kernel_constants<0>(out);
+  else if (n_attrs == 3)
+    kernel_constants<3>(out);
+  else
+    kernel_constants<6>(out);
 }
 
 }  // extern "C"

@@ -31,8 +31,8 @@ from test_torch_raster import light_direction, random_scene, run_jax_reference
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import binning, frontend, raster
 from cython3dmodelrenderer_tpu_torch.ops.illumination import lambert_shade
-from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
-                                                            visibility_masks)
+from cython3dmodelrenderer_tpu_torch.ops.projection import (
+    project_to_screen, projection_matrix, visibility_masks)
 from cython3dmodelrenderer_tpu_torch.ops.transforms import (_matmul3,
                                                             rotation_matrix)
 from cython3dmodelrenderer_tpu_torch.parallel import multiview
@@ -234,6 +234,68 @@ def test_wrapper_refuses_bad_channels(n_attrs, colors, shade):
         frontend.frame_planes(tris, tn, tc if colors else None,
                               RenderConfig(64, 64), n_attrs, TILE_H, TILE_W,
                               shade=light_direction() if shade else None)
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 16128, 262144,
+                               4 * 16128])
+@pytest.mark.parametrize("n_attrs", [0, 3, 6])
+def test_launch_plan(n, n_attrs):
+    """F1's launch plan (the mirror of ``csrc/frontend.cu``'s launcher):
+    sphere16k's 16,128 triangles fill at least 126 of the 132 SMs; every
+    block's shared memory fits without the opt-in; the rows come in whole
+    blocks whose chunks are whole 16-byte units; rows, spans and the
+    8-byte-aligned total do not overlap in the one buffer."""
+    plan = frontend.frontend_plan(n, n_attrs)
+    width = binning.row_width(n_attrs)
+    assert plan.threads == frontend.THREADS and plan.threads % 32 == 0
+    assert plan.blocks == max(1, -(-n // plan.threads))
+    assert plan.padded_rows == (plan.blocks if n else 0) * plan.threads >= n
+    assert plan.threads * width * 4 % 16 == 0
+    assert plan.smem_bytes <= frontend.SMEM_LIMIT
+    assert plan.spans_at == plan.padded_rows * width
+    assert plan.total_at >= plan.spans_at + 5 * n and plan.total_at % 2 == 0
+    assert plan.words == plan.total_at + 2
+    if n == 16128:
+        assert plan.blocks >= 126
+
+
+def test_smoke_counts_straddle_a_block():
+    """The card's F1 checks (``chip_smoke.FRONTEND_COUNTS``) cut the edge
+    scene at one, a block less one, a block, a block and one, two and one,
+    and a tail of 3 rows (no whole 16-byte chunk at 25 or 34 columns)."""
+    import chip_smoke
+
+    b = frontend.THREADS
+    assert chip_smoke.FRONTEND_COUNTS == (1, b - 1, b, b + 1, 2 * b + 1,
+                                          2 * b + 3)
+    assert all(3 * binning.row_width(a) * 4 % 16 for a in (3, 6))
+
+
+def test_plan_shared_memory():
+    """The staging bytes a block: rows, inputs, a pair count a warp."""
+    b = frontend.THREADS
+    assert [frontend.frontend_plan(1, a).smem_bytes for a in (0, 3, 6)] == [
+        4 * b * (16 + 18) + b // 4, 4 * b * (25 + 27) + b // 4,
+        4 * b * (34 + 27) + b // 4]
+
+
+def test_projection_floats_are_cached():
+    """The wrapper's 16 projection floats equal ``projection_matrix``,
+    are built once per (fov, aspect, z_near, z_far) and follow ``fov``."""
+    config = RenderConfig(height=96, width=128, fov=45.0)
+    pm = frontend.projection_floats(config)
+    np.testing.assert_array_equal(np.array(pm[:], np.float32),
+                                  projection_matrix(config).ravel())
+    assert frontend.projection_floats(RenderConfig(height=96, width=128,
+                                                   fov=45.0)) is pm
+    assert frontend.projection_floats(RenderConfig(height=192, width=256,
+                                                   fov=45.0)) is pm
+    other = frontend.projection_floats(RenderConfig(height=96, width=128,
+                                                    fov=60.0))
+    assert other is not pm and other[:] != pm[:]
+    np.testing.assert_array_equal(
+        np.array(other[:], np.float32),
+        projection_matrix(RenderConfig(height=96, width=128, fov=60.0)).ravel())
 
 
 def counting(monkeypatch, module, name):

@@ -457,7 +457,16 @@ def test_epi_prims_refuses_too_much_shared_memory(cuda):
 
 
 def frontend_scene(cuda, name):
-    """(vertices, normals, colours, height, width, poses) of an F1 case."""
+    """(vertices, normals, colours, height, width, poses) of an F1 case:
+    ``n<T>`` is the first T triangles of the edge scene at 1024²,
+    ``posed<T>`` T of them posed in 3 views (T not a multiple of the
+    block: blocks cross view boundaries, T = 45 twice in one block)."""
+    if name.startswith(("n", "posed")):
+        t = int(name.removeprefix("posed").removeprefix("n"))
+        arrays = tuple(a[:t] for a in chip_smoke.frontend_edge_scene(
+            cuda, n=max(t, 6)))
+        poses = chip_smoke.sweep_poses(3) if name.startswith("posed") else None
+        return (*arrays, 1024, 1024, poses)
     if name.startswith("edge"):
         arrays = chip_smoke.frontend_edge_scene(cuda)
         if name == "edge_posed":
@@ -476,28 +485,83 @@ def frontend_scene(cuda, name):
             chip_smoke.seeded_colors(model), 1024, 1024, None)
 
 
+def frontend_args(scene_arrays, n_attrs, fast):
+    tv, tn, tc, h, w, poses = scene_arrays
+    cfg = RenderConfig(height=h, width=w, fov=chip_smoke.FOV)
+    return ((tv, tn, tc, cfg, n_attrs, raster.TILE_H, raster.TILE_W),
+            dict(shade=light_direction() if fast else None, poses=poses))
+
+
 @pytest.mark.parametrize("variant", chip_smoke.FRONTEND_VARIANTS,
                          ids=lambda v: v[0])
 @pytest.mark.parametrize("scene", ["edge1024", "edge72x100", "edge_posed",
-                                   "empty", "sphere16k", "torus262k"])
+                                   "empty", "sphere16k", "torus262k"]
+                         + [f"n{t}" for t in chip_smoke.FRONTEND_COUNTS]
+                         + ["posed45", "posed200"])
 def test_frontend_kernel_matches_plain(cuda, scene, variant):
     """F1 equals its plain version bit for bit in every output (NaN bits
-    included) and itself on a second call; one launch a call with
-    triangles."""
+    included) and itself on a second call; one launch a call, also with
+    no triangles (it writes the zero total)."""
     _tag, n_attrs, fast = variant
-    tv, tn, tc, h, w, poses = frontend_scene(cuda, scene)
-    cfg = RenderConfig(height=h, width=w, fov=chip_smoke.FOV)
-    args = (tv, tn, tc, cfg, n_attrs, raster.TILE_H, raster.TILE_W)
-    kwargs = dict(shade=light_direction() if fast else None, poses=poses)
+    args, kwargs = frontend_args(frontend_scene(cuda, scene), n_attrs, fast)
     before = frontend.frame_planes.launches
     got = frontend.frame_planes(*args, **kwargs)
     again = frontend.frame_planes(*args, **kwargs)
     want = frontend.frame_planes_plain(*args, **kwargs)
     torch.cuda.synchronize()
-    assert frontend.frame_planes.launches == before + 2 * (tv.shape[0] > 0)
+    assert frontend.frame_planes.launches == before + 2
+    assert got[0].is_contiguous()
     for a, b, c in zip(got, again, want):
         assert a.device.type == "cuda"
         assert chip_smoke.same_bits(a, c) and chip_smoke.same_bits(a, b)
+
+
+def test_frontend_totals_alternate_exactly(cuda):
+    """Calls with different pair totals, no triangles among them, queued
+    back to back on one stream: each total is exact, so every launch's
+    last block left the accumulator and the ticket at zero."""
+    cases = [frontend_scene(cuda, name) for name in
+             ("sphere16k", "empty", "n129", "edge72x100", "empty", "n1",
+              "posed45", "sphere16k")]
+    calls = [frontend_args(arrays, 6, False) for arrays in cases]
+    got = [frontend.frame_planes(*a, **kw)[-1] for a, kw in calls]
+    want = [int(frontend.frame_planes_plain(*a, **kw)[-1]) for a, kw in calls]
+    assert [int(t) for t in got] == want
+    assert len(set(want)) >= 4 and want[1] == want[4] == 0
+
+
+@pytest.mark.parametrize("variant", chip_smoke.FRONTEND_VARIANTS,
+                         ids=lambda v: v[0])
+def test_frontend_misaligned_inputs(cuda, variant):
+    """Inputs that are views at a 4-byte offset (no 16-byte alignment)
+    give the plain version's bits."""
+    _tag, n_attrs, fast = variant
+    tv, tn, tc, h, w, _poses = frontend_scene(cuda, "n259")
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, device=cuda)
+        buf[1:] = a.reshape(-1)
+        return buf[1:].view(a.shape)
+
+    args, kwargs = frontend_args((tv, tn, tc, h, w, chip_smoke.sweep_poses(3)),
+                                 n_attrs, fast)
+    moved = (shifted(tv), shifted(tn), shifted(tc)) + args[3:]
+    assert moved[0].data_ptr() % 16 == 4
+    want = frontend.frame_planes_plain(*args, **kwargs)
+    got = frontend.frame_planes(*moved, **kwargs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert chip_smoke.same_bits(a, b)
+
+
+@pytest.mark.parametrize("n_attrs", [0, 3, 6])
+def test_frontend_constants_match_the_plan(cuda, n_attrs):
+    """``frontend.frontend_plan`` sizes launches with the block and the
+    shared memory the built kernel has."""
+    got = frontend.kernel_constants(n_attrs)
+    plan = frontend.frontend_plan(16128, n_attrs)
+    assert got["threads"] == plan.threads
+    assert got["smem_bytes"] == plan.smem_bytes
 
 
 def test_frontend_render_frame_launches_once(cuda):

@@ -6,6 +6,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--size 1024] [--frames 20] [--out DIR] [--backend auto|ratio]
         [--sweep 1,2,4,8] [--b5] [--binning] [--raster [SOURCE.cu ...]]
         [--rounds 4] [--p1 [PRIM ...]] [--sharded]
+        [--frontend [SOURCE.cu ...]]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
@@ -51,11 +52,24 @@ image against ``raster_tiles_plain``. ``--sharded`` traces, at world
 size 1 in this process (NCCL), ``--frames`` triangle-sharded frames of the
 scene (``render_triangle_sharded``, the merge's four all-reduces
 included) beside the unsharded G-buffer frame they merge.
+``--frontend`` times kernel F1 (``frame_planes``) on the inputs
+``chip_smoke.py`` times it on: sphere16k@1024² and torus262k@1024² at 6
+and 3 channels and the sweep's posed 4-view batch at 6, after checking
+every output against ``frame_planes_plain`` bit for bit: device ms and
+device operations a call (``measure.profile_calls``) ``--rounds`` times,
+CUDA-event ms a call, and the bound. With no SOURCE it uses only the
+wrapper's public call, so the same command runs in a ``git archive`` copy
+of the parent commit (with this file copied in) to compare the two in
+turns; each SOURCE.cu that exports the same ``frontend_launch`` and
+``frontend_constants`` (a variant of ``csrc/frontend.cu``, say with
+another block size) is built like ``--raster``'s and timed in turns with
+the repository's kernel, the wrapper sized by the variant's own block.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
 import collections
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -198,15 +212,14 @@ def trace(label, fn, reps, per, out, stages=False):
                                     row_limit=15))
 
 
-def build_raster_variant(source):
-    """nvcc ``source`` (a file exporting ``raster_launch``) with the
-    repository's flags into ``build/kernels/variants``; return it loaded
-    and bound like the repository's raster kernel."""
+def build_variant(source, bind):
+    """nvcc ``source`` (a variant of one of ``csrc/``'s kernels, exporting
+    the same C functions) with the repository's flags into
+    ``build/kernels/variants``; return it loaded and bound by ``bind``."""
     import hashlib
     from pathlib import Path
 
     from cython3dmodelrenderer_tpu_torch import cuda_build
-    from cython3dmodelrenderer_tpu_torch.ops import raster
 
     source = Path(source)
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
@@ -215,7 +228,25 @@ def build_raster_variant(source):
     print(f"built {source}: " + " / ".join(
         ln.split("ptxas info    :")[-1].strip()
         for ln in report.splitlines() if "Used" in ln or "spill" in ln))
-    return raster.bind(cuda_build.open_library(out))
+    return bind(cuda_build.open_library(out))
+
+
+def scene_model(name):
+    """``chip_smoke.py``'s sphere16k or torus262k, posed, on the card."""
+    v, f = (chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
+                                        chip_smoke.TRI_SPHERE_RINGS)
+            if name == "sphere16k"
+            else chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS))
+    return chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
+
+
+def turntable_inputs():
+    """The sweep's centred sphere16k and seeded colours (T, 3, 3)."""
+    gen = torch.Generator().manual_seed(7)
+    centred = chip_smoke.turntable_model("cuda")
+    colors = torch.randint(256, (centred.n_triangles(), 3), generator=gen)
+    colors = colors.to("cuda", torch.float32)[:, None, :].expand(-1, 3, 3)
+    return centred, colors.contiguous()
 
 
 def raster_inputs(sphere, torus):
@@ -228,12 +259,8 @@ def raster_inputs(sphere, torus):
             model, "lambert_u8", 1024)
         out[tag] = chip_smoke.with_bins(kw, raster.route_bins(
             tx0, cx, ty0, cy, ntx, nty, total, raster.GROUP, "cuda"))
-    gen = torch.Generator().manual_seed(7)
-    centred = chip_smoke.turntable_model("cuda")
-    colors = torch.randint(256, (centred.n_triangles(), 3), generator=gen)
-    colors = colors.to("cuda", torch.float32)[:, None, :].expand(-1, 3, 3)
-    out["sweep vb2"] = chip_smoke.sweep_batch_inputs(
-        centred, colors.contiguous(), "lambert_u8")
+    out["sweep vb2"] = chip_smoke.sweep_batch_inputs(*turntable_inputs(),
+                                                     "lambert_u8")
     return out
 
 
@@ -243,12 +270,8 @@ def raster_ab(sources, rounds):
     from cython3dmodelrenderer_tpu_torch.ops import raster
 
     libs = [("repo", raster._lib())]
-    libs += [(src, build_raster_variant(src)) for src in sources]
-    v, f = chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
-                                       chip_smoke.TRI_SPHERE_RINGS)
-    sphere = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
-    v, f = chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS)
-    torus = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
+    libs += [(src, build_variant(src, raster.bind)) for src in sources]
+    sphere, torus = scene_model("sphere16k"), scene_model("torus262k")
     light = pt.GuroIllumination([0, 0, 1]).light_direction
     repo_lib = raster._lib
     try:
@@ -344,6 +367,63 @@ def sharded(model, size, frames, out):
             dist.destroy_process_group()
 
 
+def frontend_ab(sources, rounds):
+    """F1's device ms, device operations and event ms a call, for the
+    repository's kernel and each variant source."""
+    from cython3dmodelrenderer_tpu_torch.measure import (cuda_time_ms,
+                                                         profile_calls)
+    from cython3dmodelrenderer_tpu_torch.ops import frontend
+
+    libs = [("repo", None)] + [(src, build_variant(src, frontend.bind))
+                               for src in sources]
+    light = pt.GuroIllumination([0, 0, 1]).light_direction
+    cases = []
+    for name in ("sphere16k", "torus262k"):
+        model = scene_model(name)
+        arrays = (model.vertices_by_triangles, model.normals_by_triangles,
+                  chip_smoke.seeded_colors(model))
+        cases += [(f"{name}@1024 C={c}", chip_smoke.frontend_call(
+            *arrays, 1024, 1024, c, False, light)) for c in (6, 3)]
+    centred, colors = turntable_inputs()
+    cases.append(("sweep batch x4 C=6", chip_smoke.frontend_call(
+        centred.vertices_by_triangles, centred.normals_by_triangles, colors,
+        1024, 1024, 6, False, light, chip_smoke.sweep_poses(4))))
+
+    @contextlib.contextmanager
+    def using(lib):
+        """The wrapper on ``lib``, its plan on the variant's block."""
+        if lib is None:
+            yield
+            return
+        saved = frontend._lib, frontend.THREADS
+        out = (ctypes.c_int * 4)()
+        lib.frontend_constants(6, out)
+        frontend._lib, frontend.THREADS = (lambda: lib), out[0]
+        try:
+            yield
+        finally:
+            frontend._lib, frontend.THREADS = saved
+
+    for tag, (args, kw) in cases:
+        def call(args=args, kw=kw):
+            return frontend.frame_planes(*args, **kw)
+
+        want = frontend.frame_planes_plain(*args, **kw)
+        result = {"frontend": tag, "bound": chip_smoke.frontend_bound(
+            args, kw, want)}
+        for name, lib in libs:
+            with using(lib):
+                result[name] = {"bit_equal_to_plain": all(
+                    chip_smoke.same_bits(a, b) for a, b in zip(call(), want)),
+                    "event_ms": cuda_time_ms(call, 100),
+                    "device_ms_ops": []}
+        for r in range(rounds):
+            for name, lib in (libs if r % 2 == 0 else libs[::-1]):
+                with using(lib):
+                    result[name]["device_ms_ops"].append(profile_calls(call, 20))
+        print(json.dumps(result))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
@@ -360,6 +440,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--p1", nargs="*", metavar="PRIM")
     ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--frontend", nargs="*", metavar="SOURCE.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
@@ -372,12 +453,11 @@ def main():
         print(smi("name,power.limit"))
         raster_ab(args.raster, args.rounds)
         return
-    if args.scene == "sphere16k":
-        v, f = chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
-                                           chip_smoke.TRI_SPHERE_RINGS)
-    else:
-        v, f = chip_smoke.displaced_torus(*chip_smoke.TORUS_QUADS)
-    model = chip_smoke.posed(pt.Model(v, f, device="cuda"), True)
+    if args.frontend is not None:
+        print(smi("name,power.limit"))
+        frontend_ab(args.frontend, args.rounds)
+        return
+    model = scene_model(args.scene)
     print(smi("name,power.limit"))
     tag = f"{args.scene}@{args.size}" + ("/ratio" if args.backend == "ratio"
                                          else "")
