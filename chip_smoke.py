@@ -236,6 +236,21 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
+def launch_counts(*kernels):
+    """The program's kernel launches so far (``utils.timing.counters``,
+    ``launch.<kernel>``), by kernel."""
+    from cython3dmodelrenderer_tpu_torch.utils.timing import counters
+
+    return {k: counters[f"launch.{k}"] for k in kernels}
+
+
+def launches_since(before):
+    """The launches of ``before``'s kernels since ``before`` was taken
+    (``launch_counts``)."""
+    now = launch_counts(*before)
+    return {k: now[k] - n for k, n in before.items()}
+
+
 # ---------------------------------------------------------------------------
 # scenes
 # ---------------------------------------------------------------------------
@@ -1022,14 +1037,9 @@ def phase_main(scenes):
     import torch
 
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
-    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
-    from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
-    raster_tiles.launches = 0
-    sort_i32.launches = 0
-    frame_planes.launches = 0
+    before = launch_counts("raster", "sort", "frontend")
     results = {}
     for name, model in scenes.items():
         for iname, illum in illums:
@@ -1040,8 +1050,7 @@ def phase_main(scenes):
                                       renderer.z_buffer.array)
     default = default_device_render()
     torch.cuda.synchronize()
-    launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches,
-                "frontend": frame_planes.launches}
+    launches = launches_since(before)
 
     for (name, iname), (renderer, img1, img2, z) in results.items():
         lit = check_frame(f"{name}/{iname}", img1, img2, z, SIZE)
@@ -1099,14 +1108,10 @@ def phase_large(scenes):
 
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
-    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
-    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
     from cython3dmodelrenderer_tpu_torch.ops.projection import (
         project_to_screen, visibility_masks)
     from cython3dmodelrenderer_tpu_torch.ops.raster import (rasterize,
-                                                            raster_tiles,
                                                             render_frame)
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
     model = scenes["torus262k"]
@@ -1115,8 +1120,7 @@ def phase_large(scenes):
     tc = seeded_colors(model)
     deg, back = visibility_masks(tv, tn)
     screen = project_to_screen(tv, config)
-    bin_sort.launches = raster_tiles.launches = sort_i32.launches = 0
-    frame_planes.launches = 0
+    before = launch_counts("binsort", "raster", "sort", "frontend")
     results = {}
     for name, size in LARGE_FRAMES:
         for iname, illum in illums:
@@ -1127,8 +1131,7 @@ def phase_large(scenes):
                                             renderer.z_buffer.array)
     gbuf = rasterize(screen, tc, tn, ~deg & ~back, config)
     torch.cuda.synchronize()
-    launches = {"binsort": bin_sort.launches, "raster": raster_tiles.launches,
-                "sort": sort_i32.launches, "frontend": frame_planes.launches}
+    launches = launches_since(before)
 
     for (name, size, iname), (renderer, img1, img2, z) in results.items():
         tag = f"{name}@{size}/{iname}"
@@ -1352,35 +1355,27 @@ def phase_sweep(model, light):
 
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
-    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
-    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
-    from cython3dmodelrenderer_tpu_torch.ops.raster import (raster_tiles,
-                                                            render_frame)
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
+    from cython3dmodelrenderer_tpu_torch.ops.raster import render_frame
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
     runs = [(iname, vb, False) for iname, _ in illums for vb in SWEEP_BATCHES]
     runs += [("guro", vb, True) for vb in FAST_BATCHES]
     renderers = {iname: make_renderer(illum) for iname, illum in illums}
-    counters = (raster_tiles, sort_i32, bin_sort, frame_planes)
+    kernels = ("raster", "sort", "binsort", "frontend")
     results, per_sweep = {}, {}
-    for c in counters:
-        c.launches = 0
+    start = launch_counts(*kernels)
     for iname, vb, fast in runs:                    # the sweep path's run
-        before = [c.launches for c in counters]
+        before = launch_counts(*kernels)
         results[(iname, vb, fast)] = renderers[iname].render_sequence(
             **sweep_args(renderers[iname], model, vb, fast))
-        per_sweep[(iname, vb, fast)] = [c.launches - b
-                                        for c, b in zip(counters, before)]
+        per_sweep[(iname, vb, fast)] = list(launches_since(before).values())
     torch.cuda.synchronize()
-    launches = {"raster": raster_tiles.launches, "sort": sort_i32.launches,
-                "binsort": bin_sort.launches,
-                "frontend": frame_planes.launches,
-                "raster_batched": sum(n[0] for (_i, vb, _f), n in
+    launches = dict(launches_since(start),
+                    raster_batched=sum(n[0] for (_i, vb, _f), n in
                                       per_sweep.items() if vb > 1),
-                "frontend_batched": sum(n[3] for (_i, vb, _f), n in
-                                        per_sweep.items() if vb > 1)}
+                    frontend_batched=sum(n[3] for (_i, vb, _f), n in
+                                         per_sweep.items() if vb > 1))
 
     config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
     gen = torch.Generator().manual_seed(7)
@@ -1557,17 +1552,15 @@ def time_b5(spans, cap):
 
 
 def phase_b5(scenes):
-    """B5 at sphere16k@1024²'s spans: counts set to 0, the three caps'
-    run, counts read (B4, B2 and the placement each launched once a cap);
+    """B5 at sphere16k@1024²'s spans: the three caps' run and the launches
+    it made (B4, B2 and the placement each launched once a cap);
     each output against both plain versions and a second run; timings."""
     import torch
 
-    from cython3dmodelrenderer_tpu_torch.ops.binsort import (bin_sort,
-                                                             bin_sort_plain)
+    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort_plain
     from cython3dmodelrenderer_tpu_torch.ops.binsort_grouped import (
         bin_sort_grouped, bin_sort_grouped_plain, clamp_cut,
         place_from_bins_plain)
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
 
     tx0, cx, ty0, cy, ntx, nty, total = frame_setup(scenes["sphere16k"],
                                                     "lambert_u8", SIZE)[1]
@@ -1580,13 +1573,11 @@ def phase_b5(scenes):
             f"triangle {tc}'s span, not inside it")
     caps = (("ample", min(demand, (1 << 17) - 128)),
             ("undersized", 128 * (total // 256)), ("mid-span", mid))
-    counters = (bin_sort_grouped, bin_sort, sort_i32)
-    for c in counters:
-        c.launches = 0                              # B5's own run
+    before = launch_counts("binsort_grouped", "binsort", "sort")
     runs = [bin_sort_grouped(*spans, cap, B5_GROUP, B5_SUB) for _t, cap in caps]
     torch.cuda.synchronize()
     launches = dict(zip(("placement", "binsort", "sort"),
-                        (c.launches for c in counters)))
+                        launches_since(before).values()))
     require(all(n == len(caps) for n in launches.values()),
             f"B5 did not run B4, B2 and its placement once a call: {launches}")
     say("b5", f"kernel launches on B5's run ({len(caps)} calls): {launches}")
@@ -1643,7 +1634,7 @@ def phase_probes():
 
     x2 = vpu_cal.make_input(device=DEVICE)
     x1, smat = epi_prims.make_input(DEVICE)
-    vpu_cal.run_once.launches = epi_prims.run.launches = 0
+    before = launch_counts("vpu_cal", "epi_prims")
     cal = vpu_cal.calibrate(x2)
     vpu_cal.report(cal)
     slopes = {}
@@ -1651,8 +1642,7 @@ def phase_probes():
         slopes[name] = epi_prims.measure(name, x1, smat)
         epi_prims.report(name, *slopes[name])
     torch.cuda.synchronize()
-    launches = {"vpu_cal": vpu_cal.run_once.launches,
-                "epi_prims": epi_prims.run.launches}
+    launches = launches_since(before)
     require(min(launches.values()) > 0,
             f"a probe kernel was not launched on the probes' path: {launches}")
     say("probes", f"kernel launches on the probes' path: {launches}")
@@ -1951,17 +1941,16 @@ def surface_custom_drawer(model):
 
     from cython3dmodelrenderer_tpu_torch import IlluminationDrawer
     from cython3dmodelrenderer_tpu_torch.ops.illumination import cast_u8
-    from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
 
     class Tint(IlluminationDrawer):
         def apply(self, color, n_buffer):
             return color * 0.5 + n_buffer[..., 2:3].abs() * 100.0
 
     renderer = make_renderer(Tint(), "cuda")
-    raster_tiles.launches = 0
+    before = launch_counts("raster")
     img = seeded_render(renderer, model)
     torch.cuda.synchronize()
-    launches = raster_tiles.launches
+    launches = launches_since(before)["raster"]
     require(launches > 0, "custom drawer: B1 was not launched")
     color, z, normals, _img = renderer.pixel_buffer_filler.snapshot_buffers()
     require(torch.equal(img, cast_u8(Tint().apply(color, normals)))
@@ -2060,10 +2049,6 @@ def sharded_cases(world, arrays):
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.device import resolve_device
     from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
-    from cython3dmodelrenderer_tpu_torch.ops.binsort import bin_sort
-    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes
-    from cython3dmodelrenderer_tpu_torch.ops.raster import raster_tiles
-    from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32
     from cython3dmodelrenderer_tpu_torch.parallel import multiview
     from cython3dmodelrenderer_tpu_torch.parallel.mesh import make_mesh
 
@@ -2077,17 +2062,14 @@ def sharded_cases(world, arrays):
     angles = sweep_angles()
     per = SWEEP_VIEWS // world
     mine_angles = angles[rank * per:(rank + 1) * per]
-    counters = {"raster": raster_tiles, "sort": sort_i32, "binsort": bin_sort,
-                "frontend": frame_planes}
     tag = f"world {world} rank {rank}"
     out = {"rank": rank, "device": str(dev)}
 
     def launches_of(fn):
-        for c in counters.values():
-            c.launches = 0
+        before = launch_counts("raster", "sort", "binsort", "frontend")
         res = fn()
         torch.cuda.synchronize()
-        return res, {k: c.launches for k, c in counters.items()}
+        return res, launches_since(before)
 
     for vb in SHARD_VIEW_BATCHES:
         def sharded():

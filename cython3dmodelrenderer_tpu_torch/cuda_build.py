@@ -16,7 +16,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from .utils import timing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -73,11 +76,19 @@ def open_library(path: Path) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use. The
+    host seconds of the build (or of finding the library built) and of the
+    load go to ``kernel_build_s`` and ``kernel_load_s`` in
+    ``utils.timing.counters``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = open_library(build(name))
+            started = time.perf_counter()
+            path = build(name)
+            built = time.perf_counter()
+            lib = _LIBS[name] = open_library(path)
+            timing.counters["kernel_build_s"] += built - started
+            timing.counters["kernel_load_s"] += time.perf_counter() - built
         return lib
 
 

@@ -10,6 +10,7 @@ clip — ``model.py:147-150``) and stored as float32.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import transforms as T
+from ..utils import timing
 from . import obj_io
 
 
@@ -53,8 +55,10 @@ class Model:
         (N, 3), ``faces_n`` (T, 3) and optionally ``colors`` (C, 3) with
         ``faces_vt`` (T, 3) and ``texture``. Indices must be resolved
         (non-negative). Only the mean/span statistics and the incidence
-        table (topology) are derived.
+        table (topology) are derived. Adds the host seconds taken to
+        ``model_state_s`` in ``utils.timing.counters``.
         """
+        started = time.perf_counter()
         self = cls.__new__(cls)
         self._device = resolve_device(device)
         vertices = np.asarray(state["vertices"], np.float32).reshape(-1, 3)
@@ -75,6 +79,7 @@ class Model:
                                                        len(colors)))
             if state.get("texture") is not None:
                 self._texture = self._tensor(np.asarray(state["texture"]))
+        timing.counters["model_state_s"] += time.perf_counter() - started
         return self
 
     def __init__(self, vertices, triangles_vertices,

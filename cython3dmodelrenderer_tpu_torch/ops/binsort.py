@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from .. import cuda_build
+from ..utils import timing
 from . import sort as radix
 from .sort import sort_i32
 
@@ -195,10 +196,5 @@ def bin_sort(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
         pair_tri.data_ptr(), dev.index, cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "bin_sort (csrc/radix_sort.cu)")
     if total > 0 and n_tris > 0:
-        bin_sort.launches += 1
+        timing.counters["launch.binsort"] += 1
     return pair_tri, scratch[:n_tiles], scratch[n_tiles:2 * n_tiles]
-
-
-#: calls of ``bin_sort`` that launched B4's kernels (one per call on a CUDA
-#: tensor with pairs)
-bin_sort.launches = 0

@@ -42,6 +42,7 @@ from typing import Tuple
 import torch
 
 from .. import cuda_build
+from ..utils import timing
 from .binsort import Bins, _check_spans, bin_sort, bin_sort_plain, expand_pairs
 from .sort import sort_i32, sort_i32_plain
 
@@ -289,11 +290,6 @@ def bin_sort_grouped(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
             slot_cap, order.data_ptr(), dev.index, stream)
         cuda_build.check(lib, err, "bin_sort_grouped placement "
                          "(csrc/binsort_grouped.cu)")
-        bin_sort_grouped.launches += 1
+        timing.counters["launch.binsort_grouped"] += 1
     return (order, gstarts, gchunks, stids, sstripes, counts,
             total_slots.reshape(()), n_active.reshape(()))
-
-
-#: placement-kernel launches made by ``bin_sort_grouped`` (one per call on
-#: a CUDA tensor with pairs)
-bin_sort_grouped.launches = 0

@@ -28,6 +28,7 @@ import torch
 
 from .. import cuda_build
 from ..config import RenderConfig
+from ..utils import timing
 from . import binning
 from .illumination import lambert_shade
 from .projection import project_to_screen, projection_matrix, visibility_masks
@@ -236,9 +237,5 @@ def frame_planes(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
         rows.data_ptr(), spans.data_ptr(), total.data_ptr(),
         _sync_words(dev, stream).data_ptr(), dev.index, stream)
     cuda_build.check(lib, err, "frame_planes (csrc/frontend.cu)")
-    frame_planes.launches += 1
+    timing.counters["launch.frontend"] += 1
     return (rows[:n], *spans.unbind(0), total)
-
-
-#: kernel launches made by ``frame_planes`` (one per call on a CUDA tensor)
-frame_planes.launches = 0

@@ -43,6 +43,7 @@ import torch
 
 from .. import cuda_build
 from ..config import RenderConfig
+from ..utils import timing
 from . import binning
 from .binsort import bin_pairs, bin_sort, bin_sort_plain, grouped_limits_ok
 from .frontend import frame_planes, frame_planes_plain
@@ -320,12 +321,8 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
         *gbuf_ptrs, img.data_ptr() if img is not None else None,
         dev.index, cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "raster_tiles (csrc/raster.cu)")
-    raster_tiles.launches += 1
+    timing.counters["launch.raster"] += 1
     return gbuf, img
-
-
-#: kernel launches made by ``raster_tiles`` (one per call on a CUDA tensor)
-raster_tiles.launches = 0
 
 
 def view_row_stride(nty: int, group: int) -> int:
@@ -403,16 +400,21 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     n_attrs = (3 if fast or (post == "u8" and not emit_gbuf)
                else binning.N_ATTRS)
     planes = frame_planes if backend == "cuda" else frame_planes_plain
-    rows, tx0, cx, ty0, cy, _counts, total = planes(
-        tri_verts, tri_norms, tri_colors, config, n_attrs, TILE_H, TILE_W,
-        shade=light if fast else None)
-    total = int(total)                          # the frame's one host read
-    bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
+    with timing.span("front_end"):
+        rows, tx0, cx, ty0, cy, _counts, total = planes(
+            tri_verts, tri_norms, tri_colors, config, n_attrs, TILE_H, TILE_W,
+            shade=light if fast else None)
+    with timing.span("pair_total"):
+        total = int(total)                      # the frame's one host read
+    with timing.span("bins"):
+        bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
     if stats is not None:
         stats["active_tiles"] = (bins[2] > 0).sum()
-    gbuf, img = raster(rows, *bins, ntx, nty, h, w, n_attrs, config.z_init,
-                       light=light if post == "lambert_u8" else None,
-                       gbuffer=emit_gbuf, image=want_img)
+    with timing.span("raster"):
+        gbuf, img = raster(rows, *bins, ntx, nty, h, w, n_attrs,
+                           config.z_init,
+                           light=light if post == "lambert_u8" else None,
+                           gbuffer=emit_gbuf, image=want_img)
     return gbuf, img, total
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import cuda_build
+from ..utils import timing
 
 INT32_MAX = 2 ** 31 - 1
 RADIX_BITS = 8
@@ -118,10 +119,5 @@ def sort_i32(keys: torch.Tensor, bits: int = 31) -> torch.Tensor:
         work.data_ptr() + 4 * sort_plan.scratch_words, n, bits,
         work.data_ptr(), dev.index, cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "sort_i32 (csrc/radix_sort.cu)")
-    sort_i32.launches += 1
+    timing.counters["launch.sort"] += 1
     return out
-
-
-#: calls of ``sort_i32`` that launched the core (one per call on a CUDA
-#: tensor with keys)
-sort_i32.launches = 0

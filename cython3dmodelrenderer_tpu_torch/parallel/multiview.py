@@ -64,6 +64,7 @@ from ..ops.frontend import frame_planes, frame_planes_plain, pose_triangles
 from ..ops.illumination import lambert_shade
 from ..ops.projection import project_to_screen, visibility_masks
 from ..ops.transforms import rotation_matrix
+from ..utils import timing
 
 POSTS = ("f32", "u8")
 
@@ -126,7 +127,9 @@ def _stacked_planes(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
     ``lean`` (unlit u8) batch never reads the normal channels. Shared by
     the batch renderer and ``sequence_demand``, as JAX's
     ``_batched_view_spans`` is, so the two see the same pairs."""
-    poses = torch.stack([_pose_matrix(a, s) for a, s in zip(angles_b, shifts_b)])
+    with timing.span("poses"):
+        poses = torch.stack([_pose_matrix(a, s)
+                             for a, s in zip(angles_b, shifts_b)])
     n_attrs = (0 if tri_colors is None else 3 if (fast or lean)
                else binning.N_ATTRS)
     planes = frame_planes if backend == "cuda" else frame_planes_plain
@@ -146,23 +149,28 @@ def _render_view_batch(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
     ntx, nty = -(-w // raster.TILE_W), -(-h // raster.TILE_H)
     lean = post == "u8" and light is None and not fast
     n_attrs = 3 if (fast or lean) else binning.N_ATTRS
-    rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
-        tri_verts, tri_norms, tri_colors, angles_b, shifts_b, config,
-        light=light, fast=fast, lean=lean, backend=backend)
-    total = int(total)                      # the batch's one host read
-    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, group,
-                             backend, n_views)
+    with timing.span("front_end"):
+        rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
+            tri_verts, tri_norms, tri_colors, angles_b, shifts_b, config,
+            light=light, fast=fast, lean=lean, backend=backend)
+    with timing.span("pair_total"):
+        total = int(total)                  # the batch's one host read
+    with timing.span("bins"):
+        bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, group,
+                                 backend, n_views)
     rast = raster.raster_tiles if backend == "cuda" else raster.raster_tiles_plain
-    if post == "u8":         # shaded (unless pre-shaded or unlit) in-kernel
-        _gbuf, img = rast(rows, *bins, ntx, nty, h, w, n_attrs, config.z_init,
-                          light=None if (fast or light is None) else light,
-                          gbuffer=False, image=True, n_views=n_views)
-    else:                    # f32: the G-buffer, shaded outside the kernel
-        (img, _z, normal), _img = rast(rows, *bins, ntx, nty, h, w, n_attrs,
-                                       config.z_init, gbuffer=True,
-                                       n_views=n_views)
-        if not (fast or light is None):
-            img = lambert_shade(img, normal, light)
+    with timing.span("raster"):
+        if post == "u8":     # shaded (unless pre-shaded or unlit) in-kernel
+            _gbuf, img = rast(rows, *bins, ntx, nty, h, w, n_attrs,
+                              config.z_init,
+                              light=None if (fast or light is None) else light,
+                              gbuffer=False, image=True, n_views=n_views)
+        else:                # f32: the G-buffer, shaded outside the kernel
+            (img, _z, normal), _img = rast(rows, *bins, ntx, nty, h, w,
+                                           n_attrs, config.z_init,
+                                           gbuffer=True, n_views=n_views)
+            if not (fast or light is None):
+                img = lambert_shade(img, normal, light)
     return img.reshape(n_views, h, w, 3), total
 
 

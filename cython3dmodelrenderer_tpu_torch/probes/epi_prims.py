@@ -37,6 +37,7 @@ import torch
 from .. import cuda_build
 from ..device import resolve_backend, resolve_device
 from ..measure import cuda_time_ms, smi
+from ..utils import timing
 
 TH, TW, K = 16, 32, 128
 SUB = 16
@@ -276,14 +277,9 @@ def run(name: str, reps: int, x: torch.Tensor, smat: torch.Tensor,
     if resolve_backend(backend, x.device) == "torch":
         return run_plain(name, reps, x, smat)
     out = _launch(name, reps, x, smat)
-    if reps > 0:
-        run.launches += 1
+    if reps > 0:        # at 0 replicas only the combine runs
+        timing.counters["launch.epi_prims"] += 1
     return out
-
-
-#: launches of the primitive's kernel made by ``run`` (one per call on CUDA
-#: tensors with ``reps`` > 0; at 0 replicas only the combine runs)
-run.launches = 0
 
 
 def measure(name: str, x: torch.Tensor, smat: torch.Tensor, n: int = 10):

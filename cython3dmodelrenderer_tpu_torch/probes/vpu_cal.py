@@ -30,6 +30,7 @@ from .. import cuda_build
 from ..device import resolve_backend, resolve_device
 from ..measure import F32_INSTR_PER_S, cuda_time_ms, smi
 from ..ops.raster import INSTR_PER_BBOX_PIXEL
+from ..utils import timing
 
 TH, TW, K = 16, 32, 128
 GRID = 64                                  # grid steps a run walks
@@ -101,12 +102,8 @@ def run_once(x: torch.Tensor, n_ops: int,
                              x.device.index,
                              cuda_build.stream_handle(x.device))
     cuda_build.check(lib, err, "vpu_cal (csrc/vpu_cal.cu)")
-    run_once.launches += 1
+    timing.counters["launch.vpu_cal"] += 1
     return out
-
-
-#: kernel launches made by ``run_once`` (one per call on a CUDA tensor)
-run_once.launches = 0
 
 
 def run(x: torch.Tensor, n_ops: int, backend: str = "auto") -> torch.Tensor:

@@ -40,6 +40,7 @@ from .models.model import Model
 from .ops.illumination import (GuroIllumination, IlluminationDrawer,
                                NoIllumination, cast_u8)
 from .ops.wireframe import LineBresenham
+from .utils import timing
 
 
 class Renderer:
@@ -79,20 +80,22 @@ class Renderer:
         picks a random (else white) colour per triangle for untextured
         models (``py/renderer.py:53-55``).
         """
-        if normalize_model:
-            image_center = (self.im_h // 2, self.im_w // 2)
-            image_span = min(image_center)
-            model.scale(image_span / model.get_max_span())
-            model.shift(-model.get_mean_vertex()
-                        + np.array([image_center[0], image_center[1],
-                                    -image_span], dtype=np.float32))
-        colors_override = self._fallback_colors(model, random_colors)
-        if isinstance(self.pixel_buffer_filler, AdvancedPixelBufferFiller):
-            self._render_batched(model, colors_override)
-        elif isinstance(self.pixel_buffer_filler, EdgeOnlyPixelBufferFiller):
-            self._render_wireframe(model, colors_override)
-        else:
-            self._render_per_triangle(model, colors_override)
+        with timing.span("render"):
+            if normalize_model:
+                image_center = (self.im_h // 2, self.im_w // 2)
+                image_span = min(image_center)
+                model.scale(image_span / model.get_max_span())
+                model.shift(-model.get_mean_vertex()
+                            + np.array([image_center[0], image_center[1],
+                                        -image_span], dtype=np.float32))
+            colors_override = self._fallback_colors(model, random_colors)
+            if isinstance(self.pixel_buffer_filler, AdvancedPixelBufferFiller):
+                self._render_batched(model, colors_override)
+            elif isinstance(self.pixel_buffer_filler,
+                            EdgeOnlyPixelBufferFiller):
+                self._render_wireframe(model, colors_override)
+            else:
+                self._render_per_triangle(model, colors_override)
         return self.color_buffer
 
     def _fallback_colors(self, model: Model,
@@ -192,36 +195,40 @@ class Renderer:
         """
         from .parallel import multiview
 
-        filler = self.pixel_buffer_filler
-        if not isinstance(filler, AdvancedPixelBufferFiller):
-            raise TypeError("render_sequence needs AdvancedPixelBufferFiller")
-        if type(self.illumination) is NoIllumination:
-            light_direction = None
-        elif type(self.illumination) is GuroIllumination:
-            # the sweep negates and normalises again: hand it the raw
-            # direction recovered from the drawer's pre-negated unit vector
-            light_direction = -np.asarray(self.illumination.light_direction,
-                                          np.float32)
-        else:
-            raise TypeError("render_sequence supports GuroIllumination / "
-                            "NoIllumination (custom drawers: render frames "
-                            "individually)")
-        tri_colors = model.colors_by_triangles
-        if tri_colors is None:
-            tri_colors = self._fallback_colors(model, random_colors)
-        tv, tn = model.vertices_by_triangles, model.normals_by_triangles
-        for t in (tv, tn, tri_colors):
-            if t.device != filler.device:
-                raise ValueError(f"model arrays on {t.device}, filler on "
-                                 f"{filler.device}")
-        angles = np.asarray(angles, np.float32).reshape(-1, 3)
-        if shifts is None:
-            shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), angles.shape)
-        return multiview.render_sequence_pallas(
-            tv, tn, tri_colors, angles, shifts, filler.config,
-            group=filler._group, post="u8", view_batch=view_batch,
-            fast_shade=fast_shade, light_direction=light_direction,
-            backend=filler.backend)
+        with timing.span("sequence"):
+            filler = self.pixel_buffer_filler
+            if not isinstance(filler, AdvancedPixelBufferFiller):
+                raise TypeError(
+                    "render_sequence needs AdvancedPixelBufferFiller")
+            if type(self.illumination) is NoIllumination:
+                light_direction = None
+            elif type(self.illumination) is GuroIllumination:
+                # the sweep negates and normalises again: hand it the raw
+                # direction recovered from the drawer's pre-negated unit
+                # vector
+                light_direction = -np.asarray(
+                    self.illumination.light_direction, np.float32)
+            else:
+                raise TypeError("render_sequence supports GuroIllumination "
+                                "/ NoIllumination (custom drawers: render "
+                                "frames individually)")
+            tri_colors = model.colors_by_triangles
+            if tri_colors is None:
+                tri_colors = self._fallback_colors(model, random_colors)
+            tv, tn = model.vertices_by_triangles, model.normals_by_triangles
+            for t in (tv, tn, tri_colors):
+                if t.device != filler.device:
+                    raise ValueError(f"model arrays on {t.device}, filler on "
+                                     f"{filler.device}")
+            angles = np.asarray(angles, np.float32).reshape(-1, 3)
+            if shifts is None:
+                shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]),
+                                         angles.shape)
+            return multiview.render_sequence_pallas(
+                tv, tn, tri_colors, angles, shifts, filler.config,
+                group=filler._group, post="u8", view_batch=view_batch,
+                fast_shade=fast_shade, light_direction=light_direction,
+                backend=filler.backend)
 
     def reset_buffers(self) -> None:
         self.n_buffer.clear()

@@ -1,13 +1,31 @@
-"""Timing and profiling helpers.
+"""Timing and profiling helpers, and the program's own spans and counters.
 
 Counterpart of ``cython3dmodelrenderer_tpu/utils/timing.py``: a frame
 timer fenced on the device, the ``FrameStats`` aggregate, and a context
 manager around ``torch.profiler`` that writes a Chrome trace. CUDA-event
 timing and device time under the profiler are ``measure.cuda_time_ms`` and
 ``measure.profile_calls``.
+
+The program measures itself in two ways:
+
+* ``span(name)`` marks a stage of a frame or a sweep as a profiler range
+  named ``stage:crender.<name>``, on the profiler's one timeline with the
+  device operations. Without a running profiler it costs one check and
+  enters nothing. The spans are ``render`` (a frame, ``Renderer.render``)
+  and ``sequence`` (a sweep, ``Renderer.render_sequence``), and inside
+  them ``front_end`` (F1's launch and its host preparation; in a sweep
+  ``poses``, the host's pose build, nested in it), ``pair_total`` (the
+  frame's one host read), ``bins`` (the binning route) and ``raster``
+  (B1).
+* ``counters`` holds host numbers, always on: ``launch.<kernel>``
+  (kernel launches by each CUDA wrapper), ``kernel_build_s`` and
+  ``kernel_load_s`` (``cuda_build.load``) and ``model_state_s``
+  (``Model.from_state``). Seconds are ``time.perf_counter()`` intervals.
+  A frame's pair count is the filler's ``last_pairs``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -16,6 +34,22 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+#: the prefix of every span's profiler range
+SPAN_PREFIX = "stage:crender."
+#: the program's host counters (module docstring); callers read differences
+counters: collections.Counter = collections.Counter()
+#: what ``span`` returns while no profiler runs: reusable, enters nothing
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking the stage ``name``: a ``record_function``
+    range ``stage:crender.<name>`` while a profiler runs, else the shared
+    no-op ``_NO_SPAN`` (no range entered, nothing allocated)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @dataclasses.dataclass

@@ -17,6 +17,7 @@ from cython3dmodelrenderer_tpu.ops import binsort_pallas
 
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import binsort, binsort_grouped, raster
+from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 from test_torch_raster import light_direction, random_scene
 
 
@@ -92,10 +93,10 @@ def test_bin_sort_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
     spans, ntx, nty = CASES["random"]
     args = (*map(torch.from_numpy, spans), ntx, nty,
             int((spans[1] * spans[3]).sum()))
-    before = binsort.bin_sort.launches
+    before = counters["launch.binsort"]
     for a, b in zip(binsort.bin_sort(*args), binsort.bin_sort_plain(*args)):
         assert torch.equal(a, b)
-    assert binsort.bin_sort.launches == before
+    assert counters["launch.binsort"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         binsort.bin_sort(*(t.to("meta") for t in args[:4]), *args[4:])
     with pytest.raises(ValueError, match="int32"):

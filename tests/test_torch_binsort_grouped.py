@@ -29,6 +29,7 @@ from cython3dmodelrenderer_tpu.ops import binsort_pallas
 from cython3dmodelrenderer_tpu.config import RenderConfig as JConfig
 
 from cython3dmodelrenderer_tpu_torch.ops import binsort, binsort_grouped
+from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 from test_torch_binsort import random_spans
 
 
@@ -245,11 +246,11 @@ def test_clamp_cut_matches_the_expansion(n_pairs):
 def test_wrapper_runs_plain_on_cpu_and_checks_its_limits():
     spans, ntx, nty, slot_cap, group, sub = CASES["t300_bucket"]
     args = (*map(torch.from_numpy, spans), ntx, nty, slot_cap, group, sub)
-    before = binsort_grouped.bin_sort_grouped.launches
+    before = counters["launch.binsort_grouped"]
     for a, b in zip(binsort_grouped.bin_sort_grouped(*args),
                     binsort_grouped.bin_sort_grouped_plain(*args)):
         assert torch.equal(a, b)
-    assert binsort_grouped.bin_sort_grouped.launches == before
+    assert counters["launch.binsort_grouped"] == before
     with pytest.raises(ValueError, match="unsupported device"):
         binsort_grouped.bin_sort_grouped(*(t.to("meta") for t in args[:4]),
                                          *args[4:])

@@ -36,6 +36,7 @@ from cython3dmodelrenderer_tpu_torch.ops.projection import (
 from cython3dmodelrenderer_tpu_torch.ops.transforms import (_matmul3,
                                                             rotation_matrix)
 from cython3dmodelrenderer_tpu_torch.parallel import multiview
+from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 
 TILE_H, TILE_W = raster.TILE_H, raster.TILE_W
 #: (name, n_attrs, fast shade)
@@ -206,10 +207,10 @@ def test_pose_triangles_is_the_old_pose():
 def test_wrapper_runs_plain_on_cpu():
     """CPU tensors take the plain version and launch nothing."""
     scene = scenes()[0]
-    before = frontend.frame_planes.launches
+    before = counters["launch.frontend"]
     got = port_planes(scene, 6, False)
     want = port_planes(scene, 6, False, fn=frontend.frame_planes_plain)
-    assert frontend.frame_planes.launches == before
+    assert counters["launch.frontend"] == before
     for a, b in zip(got, want):
         assert torch.equal(a, b) or (a.is_floating_point()
                                      and torch.equal(a.view(torch.int32),

@@ -28,6 +28,7 @@ from cython3dmodelrenderer_tpu_torch.ops.projection import (project_to_screen,
 from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32, sort_i32_plain
 from cython3dmodelrenderer_tpu_torch.parallel import multiview
 from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
+from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 from test_torch_multiview import tiny_scene
 from test_torch_raster import light_direction, random_scene
 
@@ -66,7 +67,7 @@ def test_sort_kernel_matches_torch_sort(cuda, n, width, bits):
     on both sides of the one-launch limit, and equal to itself on a second
     call; one launch a call with keys."""
     keys = sort_keys(cuda, n, width, n + bits)
-    before = sort_i32.launches
+    before = counters["launch.sort"]
     got = sort_i32(keys, bits)
     again = sort_i32(keys, bits)
     torch.cuda.synchronize()
@@ -74,7 +75,7 @@ def test_sort_kernel_matches_torch_sort(cuda, n, width, bits):
     assert n == 0 or got.data_ptr() != keys.data_ptr()
     assert torch.equal(got, sort_i32_plain(keys))
     assert torch.equal(got, again)
-    assert sort_i32.launches == before + 2 * (n > 0)
+    assert counters["launch.sort"] == before + 2 * (n > 0)
 
 
 @pytest.mark.parametrize("n", [17473, 200000])
@@ -117,11 +118,11 @@ def test_raster_kernel_matches_plain(cuda, h, w, t, post):
     kw = binned(cuda, h, w, t, t, 3 if post == "u8" else 6)
     light = light_direction() if post == "lambert_u8" else None
     opts = dict(light=light, gbuffer=post == "none", image=post != "none")
-    before = raster.raster_tiles.launches
+    before = counters["launch.raster"]
     g_k, i_k = raster.raster_tiles(**kw, **opts)
     g_p, i_p = raster.raster_tiles_plain(**kw, **opts)
     torch.cuda.synchronize()
-    assert raster.raster_tiles.launches == before + 1
+    assert counters["launch.raster"] == before + 1
     if post == "none":
         for a, b in zip(g_k, g_p):
             np.testing.assert_array_equal(a.cpu().numpy().view(np.int32),
@@ -134,9 +135,9 @@ def assert_raster_exact(kw, post):
     """B1 bit-equal to its plain version (-0.0 is not +0.0) and to itself
     on a second call (``chip_smoke.check_raster`` raises otherwise), in
     two launches."""
-    before = raster.raster_tiles.launches
+    before = counters["launch.raster"]
     assert chip_smoke.check_raster("", kw, light_direction(), (post,)) == 0.0
-    assert raster.raster_tiles.launches == before + 2
+    assert counters["launch.raster"] == before + 2
 
 
 @pytest.mark.parametrize("n_views,seed", [(1, 0), (1, 1), (2, 2)])
@@ -187,7 +188,7 @@ def test_ungrouped_frame_backends_agree(cuda):
     cfg = RenderConfig(height=256, width=2080, fov=50)     # 65 tiles wide
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
     for group in (1, 16):
-        before = (binsort.bin_sort.launches, sort_i32.launches)
+        before = (counters["launch.binsort"], counters["launch.sort"])
         k = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
                                 light=light_direction(), backend="cuda",
                                 group=group)
@@ -195,7 +196,7 @@ def test_ungrouped_frame_backends_agree(cuda):
                                 light=light_direction(), backend="torch",
                                 group=group)
         torch.cuda.synchronize()
-        assert (binsort.bin_sort.launches, sort_i32.launches) == \
+        assert (counters["launch.binsort"], counters["launch.sort"]) == \
             (before[0] + 1, before[1])
         assert k[2] == p[2] > 0
         assert all(torch.equal(a, b) for a, b in zip(k[0], p[0]))
@@ -225,11 +226,11 @@ def synthetic_spans(cuda, n_tris, ntx, nty, seed):
 @pytest.mark.parametrize("size", [1024, 2048, 4096, 8192])
 def test_bin_sort_kernel_matches_plain(cuda, size):
     spans = synthetic_spans(cuda, 1 << 18, size // 32, size // 16, size)
-    before = binsort.bin_sort.launches
+    before = counters["launch.binsort"]
     got, again = binsort.bin_sort(*spans), binsort.bin_sort(*spans)
     want = binsort.bin_sort_plain(*spans)
     torch.cuda.synchronize()
-    assert binsort.bin_sort.launches == before + 2
+    assert counters["launch.binsort"] == before + 2
     # tile 0's bin is longer than one onesweep tile of the sort
     assert int(want[2][0]) >= 3000 > sort.TILE_KEYS
     for a, b, c in zip(got, again, want):
@@ -243,11 +244,11 @@ def test_bin_sort_kernel_one_tile(cuda, n_tris):
     the one-launch limit and past it; deterministic."""
     ones = torch.ones(n_tris, dtype=torch.int32, device=cuda)
     spans = (ones * 5, ones, ones * 7, ones, 32, 64, n_tris)
-    before = binsort.bin_sort.launches
+    before = counters["launch.binsort"]
     got, again = binsort.bin_sort(*spans), binsort.bin_sort(*spans)
     want = binsort.bin_sort_plain(*spans)
     torch.cuda.synchronize()
-    assert binsort.bin_sort.launches == before + 2
+    assert counters["launch.binsort"] == before + 2
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, c) and torch.equal(a, b)
     assert int(got[2][7 * 32 + 5]) == n_tris
@@ -290,11 +291,11 @@ def test_raster_kernel_view_batch(cuda, n_views, h, w, post):
         cuda, h, w, n_views, 120, n_views, 3 if post == "u8" else 6)
     light = light_direction() if post == "lambert_u8" else None
     opts = dict(light=light, gbuffer=post == "none", image=post != "none")
-    before = raster.raster_tiles.launches
+    before = counters["launch.raster"]
     g_k, i_k = raster.raster_tiles(**kw, **opts, n_views=n_views)
     g_p, i_p = raster.raster_tiles_plain(**kw, **opts, n_views=n_views)
     torch.cuda.synchronize()
-    assert raster.raster_tiles.launches == before + 1
+    assert counters["launch.raster"] == before + 1
     got = g_k if post == "none" else (i_k,)
     want = g_p if post == "none" else (i_p,)
     for a, b in zip(got, want):
@@ -324,12 +325,12 @@ def test_sweep_backends_agree(cuda, post, fast):
                                               post=post, fast_shade=fast,
                                               backend="torch")
     for vb in (1, 2, 4):
-        before = raster.raster_tiles.launches
+        before = counters["launch.raster"]
         got = multiview.render_turntable_pallas(tv, tn, tc, angles, cfg,
                                                 post=post, fast_shade=fast,
                                                 view_batch=vb)
         torch.cuda.synchronize()
-        assert raster.raster_tiles.launches == before + 4 // vb
+        assert counters["launch.raster"] == before + 4 // vb
         assert torch.equal(got, plain)
 
 
@@ -353,8 +354,8 @@ def check_grouped(spans, slot_cap, t):
     bins = binsort.bin_sort_plain(*spans[:4], spans[4], spans[5], total)
     decomposed = binsort_grouped.place_from_bins_plain(bins, *spans, slot_cap,
                                                        16, 8)
-    before = (binsort_grouped.bin_sort_grouped.launches,
-              binsort.bin_sort.launches)
+    before = (counters["launch.binsort_grouped"],
+              counters["launch.binsort"])
     key_bits = []
     b2 = binsort_grouped.sort_i32
 
@@ -367,8 +368,8 @@ def check_grouped(spans, slot_cap, t):
         got = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
         again = binsort_grouped.bin_sort_grouped(*spans, slot_cap, 16, 8)
     torch.cuda.synchronize()
-    assert binsort_grouped.bin_sort_grouped.launches == before[0] + 2
-    assert binsort.bin_sort.launches == before[1] + 2
+    assert counters["launch.binsort_grouped"] == before[0] + 2
+    assert counters["launch.binsort"] == before[1] + 2
     assert key_bits == [binsort_grouped.TRI_BITS + binsort_grouped.TILE_BITS] * 2
     for a, b, c, d in zip(got, again, want, decomposed):
         assert a.dtype == c.dtype and a.shape == c.shape
@@ -405,11 +406,11 @@ def test_bin_sort_grouped_kernel_one_tile(cuda, slot_cap):
 @pytest.mark.parametrize("n_ops", vpu_cal.N_OPS)
 def test_vpu_cal_kernel_matches_plain(cuda, n_ops):
     x = vpu_cal.make_input(8, device=cuda)
-    before = vpu_cal.run_once.launches
+    before = counters["launch.vpu_cal"]
     got, again = vpu_cal.run_once(x, n_ops), vpu_cal.run_once(x, n_ops)
     want = vpu_cal.run_once_plain(x, n_ops)
     torch.cuda.synchronize()
-    assert vpu_cal.run_once.launches == before + 2
+    assert counters["launch.vpu_cal"] == before + 2
     assert torch.equal(got, want) and torch.equal(got, again)
     assert not torch.isnan(got).any()
     assert torch.equal(vpu_cal.run(x, n_ops), vpu_cal.run(x, n_ops, "torch"))
@@ -419,12 +420,12 @@ def test_vpu_cal_kernel_matches_plain(cuda, n_ops):
 @pytest.mark.parametrize("name", epi_prims.ALL_PRIMS)
 def test_epi_prims_kernel_matches_plain(cuda, name, reps):
     x, smat = epi_prims.make_input(cuda)
-    before = epi_prims.run.launches
+    before = counters["launch.epi_prims"]
     got = epi_prims.run(name, reps, x, smat)
     again = epi_prims.run(name, reps, x, smat)
     want = epi_prims.run_plain(name, reps, x, smat)
     torch.cuda.synchronize()
-    assert epi_prims.run.launches == before + 2 * (reps > 0)
+    assert counters["launch.epi_prims"] == before + 2 * (reps > 0)
     assert torch.equal(got, again)
     exact = name in epi_prims.ELEMENT_PRIMS
     if exact or reps == 0:
@@ -504,12 +505,12 @@ def test_frontend_kernel_matches_plain(cuda, scene, variant):
     no triangles (it writes the zero total)."""
     _tag, n_attrs, fast = variant
     args, kwargs = frontend_args(frontend_scene(cuda, scene), n_attrs, fast)
-    before = frontend.frame_planes.launches
+    before = counters["launch.frontend"]
     got = frontend.frame_planes(*args, **kwargs)
     again = frontend.frame_planes(*args, **kwargs)
     want = frontend.frame_planes_plain(*args, **kwargs)
     torch.cuda.synchronize()
-    assert frontend.frame_planes.launches == before + 2
+    assert counters["launch.frontend"] == before + 2
     assert got[0].is_contiguous()
     for a, b, c in zip(got, again, want):
         assert a.device.type == "cuda"
@@ -569,9 +570,9 @@ def test_frontend_render_frame_launches_once(cuda):
     tris, colors, normals = random_scene(400, 13)
     cfg = RenderConfig(height=256, width=192, fov=50)
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
-    before = (frontend.frame_planes.launches, raster.raster_tiles.launches)
+    before = (counters["launch.frontend"], counters["launch.raster"])
     raster.render_frame(*args, cfg, post="lambert_u8", light=light_direction(),
                         backend="cuda", group=16)
     torch.cuda.synchronize()
-    assert (frontend.frame_planes.launches, raster.raster_tiles.launches) == (
+    assert (counters["launch.frontend"], counters["launch.raster"]) == (
         before[0] + 1, before[1] + 1)

@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from cython3dmodelrenderer_tpu_torch.probes import epi_prims, vpu_cal
+from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 from test_torch_raster import REPO, run_jax_reference
 
 P2_GRID = 4
@@ -115,12 +116,12 @@ def test_epi_prims_plain_replicas_fold_in_order(name):
 
 def test_epi_prims_wrapper_runs_plain_on_cpu_and_refuses_the_rest():
     x, smat = epi_prims.make_input("cpu")
-    before = epi_prims.run.launches
+    before = counters["launch.epi_prims"]
     assert torch.equal(epi_prims.run("epi_cur6", 2, x, smat),
                        epi_prims.run_plain("epi_cur6", 2, x, smat))
     assert torch.equal(epi_prims.run("roll", 1, x, smat, backend="torch"),
                        epi_prims.run_plain("roll", 1, x, smat))
-    assert epi_prims.run.launches == before
+    assert counters["launch.epi_prims"] == before
     with pytest.raises(ValueError, match="CUDA device"):
         epi_prims.run("reduce", 2, x, smat, backend="cuda")
     with pytest.raises(ValueError, match="unknown primitive"):
@@ -176,9 +177,9 @@ def test_vpu_cal_plain_matches_numpy(n_ops):
 
 def test_vpu_cal_wrapper_runs_plain_on_cpu_and_refuses_the_rest():
     x = vpu_cal.make_input(2, device="cpu")
-    before = vpu_cal.run_once.launches
+    before = counters["launch.vpu_cal"]
     assert torch.equal(vpu_cal.run_once(x, 8), vpu_cal.run_once_plain(x, 8))
-    assert vpu_cal.run_once.launches == before
+    assert counters["launch.vpu_cal"] == before
     with pytest.raises(ValueError, match="CUDA device"):
         vpu_cal.run_once(x, 8, backend="cuda")
     with pytest.raises(ValueError, match="n_ops"):

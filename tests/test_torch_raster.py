@@ -164,12 +164,13 @@ def test_exact_z_ties_go_to_the_earliest_triangle():
 
 def test_wrapper_routes_cpu_tensors_to_plain():
     from cython3dmodelrenderer_tpu_torch.ops import raster
+    from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 
     _name, h, w, fov, tris, colors, normals, _lean = scenes()[0]
     gbuf, img, _ = port_frame(h, w, fov, tris, colors, normals, "lambert_u8")
     gbuf2, img2, _ = port_frame(h, w, fov, tris, colors, normals, "lambert_u8")
     assert torch.equal(img, img2)
-    before = raster.raster_tiles.launches
+    before = counters["launch.raster"]
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 
     out = raster.render_frame(torch.from_numpy(tris), torch.from_numpy(normals),
@@ -178,7 +179,7 @@ def test_wrapper_routes_cpu_tensors_to_plain():
                               post="lambert_u8", light=light_direction(),
                               backend="cuda", group=16)
     assert torch.equal(out[1], img)
-    assert raster.raster_tiles.launches == before      # no kernel on the CPU
+    assert counters["launch.raster"] == before      # no kernel on the CPU
 
 
 def test_empty_scene_is_background():

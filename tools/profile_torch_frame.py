@@ -6,25 +6,24 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--size 1024] [--frames 20] [--out DIR] [--backend auto|ratio]
         [--sweep 1,2,4,8] [--b5] [--binning] [--raster [SOURCE.cu ...]]
         [--rounds 4] [--p1 [PRIM ...]] [--sharded]
-        [--frontend [SOURCE.cu ...]]
+        [--frontend [SOURCE.cu ...]] [--span-cost CELL [--seed N]]
 
 Renders a scene of ``chip_smoke.py`` (the 16,128-triangle displaced UV
 sphere, or the 262,144-triangle displaced torus) at ``--size``² with
 GuroIllumination and NoIllumination through ``Renderer.render``, traces
 ``--frames`` warm frames with ``torch.profiler``, and prints per frame:
-wall time, summed device-kernel time (and so the device's idle share),
-the number of device operations, the host's launch calls by stage, the
-kernels ranked by device time (``--backend ratio``: the frames of the
-ratio-form rasterizer), and the spread of ``--frames`` frames timed one
-by one without the profiler (host clock, each fenced by a synchronize).
-The stages are ``record_function`` ranges put around the port's calls
-while the profiler runs (``stage_ranges``): the front end (F1's wrapper
-``frame_planes``, or in a tree without it the plain ops it replaced; the
-sweep's ``_stacked_planes``), bins (``route_bins``), raster
-(``raster_tiles``), the rest of ``render_frame`` / ``_render_view_batch``
-("read": the pair-total read and the active-tile count) and the rest of
-``Renderer.render`` / ``render_sequence`` ("prelude"); each launch call
-counts in the innermost range around it.
+wall time, summed device-kernel time, the number of device operations,
+the host's launch calls by stage, the kernels ranked
+by device time (``--backend ratio``: the frames of the ratio-form
+rasterizer), and the spread of ``--frames`` frames timed one by one
+without the profiler (host clock, each fenced by a synchronize). The
+stages are the program's own spans (``utils/timing.py::span``): front
+end (F1's launch; in a sweep the host's poses apart), pair total (the
+host read), bins, raster, and the glue, the rest of ``Renderer.render``
+or ``render_sequence``; each launch call counts in the innermost span
+around it, and as "outside" in a tree without the spans. The device's
+idle share is the benchmark's ``device_idle.frames`` (a ``--trace 1``
+run of ``benchmark/run.py``).
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
@@ -64,13 +63,26 @@ turns; each SOURCE.cu that exports the same ``frontend_launch`` and
 ``frontend_constants`` (a variant of ``csrc/frontend.cu``, say with
 another block size) is built like ``--raster``'s and timed in turns with
 the repository's kernel, the wrapper sized by the variant's own block.
+``--span-cost CELL`` measures what the program's spans cost a frame of a
+frame cell of the benchmark (``BENCHMARK.json``; its driver in
+``benchmark/drivers``, ``--seed``), in the loop of its ``--trace 1`` run:
+the harness's stage ranges on, each frame fenced by a synchronize. Under
+one profiler session it takes ``--rounds`` pairs of blocks of ``--frames``
+frames, one block with the spans and one with ``utils.timing.span``
+replaced here by its no-op (the gate shut), in turns (A B B A ...), so
+that a drift of the host's speed falls on both alike. It prints the host
+µs a frame of every block, of ``--rounds`` untraced blocks before them,
+the pairs' differences (spans less gate shut: median, quartiles, how many
+are positive), the µs from the start of the harness's ``stage:frame``
+range to the program's ``render`` span and from that span's end to the
+range's end, and the µs of one span's enter and exit with and without
+the profiler.
 The chrome traces go to ``--out`` (default ``build/profile``).
 """
 import argparse
 import collections
 import contextlib
 import ctypes
-import functools
 import json
 import os
 import statistics
@@ -94,60 +106,23 @@ LAUNCH_CALLS = frozenset((
     "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
     "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaMemsetAsync",
     "cudaMemcpyAsync", "cudaMemset", "cudaMemcpy"))
-#: a stage range's name -> the label of the launches innermost in it
-STAGE_LABELS = {"frame": "prelude", "render_frame": "read",
-                "front_end": "front end", "bins": "bins", "raster": "raster"}
-
-
-def stage_targets():
-    """(range, owner, attribute) of every call ``stage_ranges`` wraps. The
-    front end is F1's wrapper where the tree has it, else the plain ops it
-    replaced (so the same script measures the parent commit)."""
-    from cython3dmodelrenderer_tpu_torch.ops import binning, raster
-    from cython3dmodelrenderer_tpu_torch.parallel import multiview
-
-    front = ([(raster, "frame_planes")] if hasattr(raster, "frame_planes")
-             else [(raster, "visibility_masks"), (raster, "project_to_screen"),
-                   (binning, "plane_data")])
-    return ([("frame", pt.Renderer, "render"),
-             ("frame", pt.Renderer, "render_sequence"),
-             ("render_frame", raster, "render_frame"),
-             ("render_frame", multiview, "_render_view_batch")]
-            + [("front_end", owner, attr) for owner, attr in
-               front + [(multiview, "_stacked_planes")]]
-            + [("bins", raster, "route_bins"),
-               ("raster", raster, "raster_tiles")])
-
-
-@contextlib.contextmanager
-def stage_ranges():
-    """Wrap each of ``stage_targets`` in a ``record_function`` range named
-    ``stage:<range>``; restore them on exit."""
-    from torch.profiler import record_function
-
-    saved = []
-    for stage, owner, attr in stage_targets():
-        fn = getattr(owner, attr)
-
-        def wrapped(*args, _fn=fn, _name=f"stage:{stage}", **kwargs):
-            with record_function(_name):
-                return _fn(*args, **kwargs)
-
-        saved.append((owner, attr, fn))
-        setattr(owner, attr, functools.wraps(fn)(wrapped))
-    try:
-        yield
-    finally:
-        for owner, attr, fn in reversed(saved):
-            setattr(owner, attr, fn)
+#: the program's spans (``utils/timing.py::span``)
+SPAN_PREFIX = "stage:crender."
+#: a span's stage -> the label of the launch calls innermost in it; "glue"
+#: is the rest of a frame (``render``) or a sweep (``sequence``)
+STAGE_LABELS = {"render": "glue", "sequence": "glue", "front_end": "front end",
+                "poses": "poses", "pair_total": "pair total", "bins": "bins",
+                "raster": "raster"}
 
 
 def stage_launches(prof, n):
     """Host launch calls a frame (or view) by stage: each counted in the
-    innermost ``stage:`` range around its start."""
+    innermost program span around its start ("outside" where none is, as
+    in a tree without the spans)."""
     events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
-    ranges = [(e.time_range.start, e.time_range.end, e.name[len("stage:"):])
-              for e in events if e.name.startswith("stage:")]
+    ranges = [(e.time_range.start, e.time_range.end,
+               e.name[len(SPAN_PREFIX):])
+              for e in events if e.name.startswith(SPAN_PREFIX)]
     counts = collections.Counter()
     for e in events:
         if e.name not in LAUNCH_CALLS:
@@ -181,25 +156,22 @@ def trace(label, fn, reps, per, out, stages=False):
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with contextlib.ExitStack() as stack:
-        if stages:
-            stack.enter_context(stage_ranges())
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / (reps * per) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / (reps * per) * 1e3
     prof.export_chrome_trace(os.path.join(out, f"{label.replace('/', '_')}.json"))
-    # the stage ranges' device-side annotations span whole stages: not work
-    kernels = [e for e in device_entries(prof) if not e.key.startswith("stage:")]
+    # the spans' device-side annotations cover whole stages: not work
+    kernels = [e for e in device_entries(prof)
+               if not e.key.startswith("stage:")]
     n = reps * per
     dev = sum(device_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=lambda e: -device_us(e))[:12]
     result = {
         "frame": label, "wall_ms": wall, "device_ms": dev,
-        "device_idle_share": 1.0 - dev / wall if wall else None,
         "kernel_launches": sum(e.count for e in kernels) / n,
         "top": [{"kernel": e.key[:80], "ms": device_us(e) / n / 1e3,
                  "calls": e.count / n} for e in top]}
@@ -424,6 +396,88 @@ def frontend_ab(sources, rounds):
         print(json.dumps(result))
 
 
+def quartiles(values):
+    """Median and quartiles (``statistics.quantiles``, n=4) of ``values``."""
+    q = statistics.quantiles(values, n=4)
+    return {"median": q[1], "q1": q[0], "q3": q[2]}
+
+
+def span_cost(cell_name, seed, frames, pairs, device="cuda:0"):
+    """What the spans cost a traced frame of a benchmark cell (docstring)."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    import harness
+    import tracing
+
+    from cython3dmodelrenderer_tpu_torch.utils import timing
+
+    device = torch.device(device)
+    cell = harness.Cell(cell_name, harness.catalog())
+    driver = harness.load_module(cell.driver_path).Driver(
+        cell.config, cell.traffic, seed, device)
+    driver.build_program()
+    driver.warm()
+    harness.synchronizer(device)()
+    loop = harness.Loop(driver, device, seed)
+    span = timing.span
+
+    def block(shut=False):
+        """µs a frame of ``frames`` steps (``shut``: no span entered)."""
+        timing.span = (lambda name: timing._NO_SPAN) if shut else span
+        try:
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                loop.step()
+            return (time.perf_counter() - t0) / frames * 1e6
+        finally:
+            timing.span = span
+
+    def one_span():
+        with timing.span("cost"):
+            pass
+
+    def per_call(fn, n=20000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    micro = {"span_off_us": per_call(one_span)}
+    off = [block() for _ in range(pairs)]
+    on, shut = [], []
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with tracing.stage_ranges(tracing.stage_targets()), profile(
+            activities=activities) as prof:
+        for _ in range(harness.PROFILER_WARM_STEPS):
+            loop.step()
+        for i in range(pairs):
+            for gate in ((False, True) if i % 2 == 0 else (True, False)):
+                (shut if gate else on).append(block(gate))
+        micro["span_on_us"] = per_call(one_span)
+    host = [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if str(e.device_type).endswith("CPU")]
+    outer = [(a, b) for n, a, b in host if n == "stage:frame"]
+    lead, tail = [], []
+    for n, a, b in host:
+        around = [(lo, hi) for lo, hi in outer if lo <= a <= hi]
+        if n == timing.SPAN_PREFIX + "render" and around:
+            lead.append(a - around[0][0])
+            tail.append(around[0][1] - b)
+    diff = [a - b for a, b in zip(on, shut)]
+    print(json.dumps({
+        "workload": cell_name, "frames_a_block": frames, "pairs": pairs,
+        "us_per_frame": {"off": off, "spans": on, "gate_shut": shut},
+        "quartiles": {"off": quartiles(off), "spans": quartiles(on),
+                      "gate_shut": quartiles(shut),
+                      "spans_less_gate_shut": quartiles(diff)},
+        "pairs_spans_slower": sum(d > 0 for d in diff),
+        "frame_range_to_render_span_us": {
+            "lead": quartiles(lead) | {"max": max(lead)},
+            "tail": quartiles(tail) | {"max": max(tail)}, "n": len(lead)},
+        "micro": micro}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
@@ -441,10 +495,17 @@ def main():
     ap.add_argument("--p1", nargs="*", metavar="PRIM")
     ap.add_argument("--sharded", action="store_true")
     ap.add_argument("--frontend", nargs="*", metavar="SOURCE.cu")
+    ap.add_argument("--span-cost", metavar="CELL")
+    ap.add_argument("--seed", type=int, default=2 ** 31 + 16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA GPU")
     os.makedirs(args.out, exist_ok=True)
+    if args.span_cost:
+        print(smi("name,power.limit"))
+        torch.set_num_threads(1)
+        span_cost(args.span_cost, args.seed, args.frames, args.rounds)
+        return
     if args.p1 is not None:
         print(smi("name,power.limit"))
         p1(args.p1, args.frames, args.out)
