@@ -39,8 +39,9 @@ Phases (one line each; any failure exits nonzero):
              16,128-triangle displaced UV sphere built in memory and
              (c) $CRENDER_OBJECTS/T-Rex.obj when that file exists; checks
              the images against the plain path, determinism, the lazy
-             z-buffer and that both kernels launched (the sort route),
-             and F1 once a frame (as many launches as B1);
+             z-buffer and that B4 and B1 launched (the counting-sort
+             route, which every frame takes) and B2 not, and F1 once a
+             frame (as many launches as B1);
              one Renderer, filler and model built with no device
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
@@ -70,9 +71,9 @@ Phases (one line each; any failure exits nonzero):
              and both routes' binning at sphere16k@1024²;
 7. sweep   — the multi-view path: an 8-view turntable of sphere16k at
              1024² through Renderer.render_sequence with GuroIllumination
-             and NoIllumination at view_batch 1, 2, 4 and 8 (1, 2 and 4 on
-             the sort route, 8 on the counting route: 16,384 stacked
-             tiles), fast shade at 1 and 4; every view equal to its
+             and NoIllumination at view_batch 1, 2, 4 and 8 (all on the
+             counting-sort route: B4 once a batch, B2 never), fast shade
+             at 1 and 4; every view equal to its
              view_batch=1 render and to render_frame on the same posed
              arrays, B1 and F1 launched N/V times a sweep, one view_batch=8
              sweep equal to the plain path; B1's view-batched launch
@@ -1039,7 +1040,7 @@ def phase_main(scenes):
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
-    before = launch_counts("raster", "sort", "frontend")
+    before = launch_counts("raster", "binsort", "sort", "frontend")
     results = {}
     for name, model in scenes.items():
         for iname, illum in illums:
@@ -1072,9 +1073,9 @@ def phase_main(scenes):
     say("main", f"Renderer, filler and Model.read_model with no device: on "
         f"{img.device}, backend {renderer.pixel_buffer_filler.backend}, "
         "== the igor_sphere guro frame")
-    require(launches["raster"] > 0 and launches["sort"] > 0
-            and launches["frontend"] > 0,
-            f"a kernel was not launched on the main path: {launches}")
+    require(launches["raster"] > 0 and launches["binsort"] > 0
+            and launches["sort"] == 0 and launches["frontend"] > 0,
+            f"not F1, B4 + B1 alone on the main path: {launches}")
     # every frame (the lazy z getter's re-render too) runs F1 once, B1 once
     require(launches["frontend"] == launches["raster"],
             f"F1 was not launched once a frame: {launches}")
@@ -1396,7 +1397,7 @@ def phase_sweep(model, light):
                 f"sweep {tag}: B1 launched {n_b1} times, not N/V")
         require(n_f1 == SWEEP_VIEWS // vb,
                 f"sweep {tag}: F1 launched {n_f1} times, not once a batch")
-        want_route = (0, 1) if vb == 8 else (SWEEP_VIEWS // vb, 0)
+        want_route = (0, SWEEP_VIEWS // vb)
         require((n_b2, n_b4) == want_route,
                 f"sweep {tag}: B2/B4 launches {(n_b2, n_b4)}, want {want_route}")
         lit = float((imgs.amax(-1) > 0).float().mean())
@@ -1420,9 +1421,9 @@ def phase_sweep(model, light):
     require(torch.equal(ref, results[("guro", SWEEP_VIEWS, False)]),
             "sweep guro view_batch=8: kernel sweep != plain-path sweep")
     say("sweep", f"guro view_batch={SWEEP_VIEWS}: == plain-path sweep")
-    require(launches["raster_batched"] > 0 and launches["sort"] > 0
+    require(launches["raster_batched"] > 0 and launches["sort"] == 0
             and launches["binsort"] > 0 and launches["frontend_batched"] > 0,
-            f"a kernel was not launched on the sweep path: {launches}")
+            f"not F1, B4 + B1 alone on the sweep path: {launches}")
     say("sweep", f"kernel launches on the sweep path: {launches}")
     return launches, renderers, colors
 

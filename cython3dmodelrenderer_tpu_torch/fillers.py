@@ -100,8 +100,8 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
         self._post_image: Optional[torch.Tensor] = None
         self.last_pairs = 0            # (triangle, tile) pairs of the last frame
         self._active_tiles = None      # its nonempty tiles (device scalar)
-        # the JAX filler's lane-subgroup packing (fillers.py:251-253): frames
-        # route their bins as its frames do (ops/raster.py::render_frame)
+        # the JAX filler's lane-subgroup packing (fillers.py:251-253), passed
+        # along as JAX passes it; it routes nothing (ops/raster.py::route_bins)
         self._group: int = raster.GROUP
         self.reset_buffers()
 

@@ -17,8 +17,10 @@ ops/binsort_pallas.py::bin_gather_grouped`` (``:437-624``) the port needs:
    kernel B2 (``ops/sort.py``) on their ``tri_bits + tile_bits`` bits;
 3. cut the sorted keys into per-tile runs with a ``searchsorted``.
 
-The int32 key bounds this route (``key_bits``); ``render_frame`` takes it
-only inside ``grouped_limits_ok``, which implies the bound.
+The int32 key bounds this route (``key_bits``). No frame takes it:
+``raster.route_bins`` bins every frame and view batch with ``bin_sort``,
+which gives the same bins in one C call. It stays as API, with B2, which
+B5 (``ops/binsort_grouped.py``) also calls.
 
 **Counting-sort route** (``bin_sort``), the counterpart of
 ``binsort_pallas.bin_sort`` (TPU kernel ``_make_kernel``, ``:42``) as
@@ -68,9 +70,10 @@ def tile_bits(n_tiles: int) -> int:
 
 def grouped_limits_ok(n_tris: int, slot_cap: int, ntx: int, nty: int) -> bool:
     """``binsort_pallas.grouped_limits_ok`` (``:346``): the budget inside
-    which the JAX package renders a ``group > 1`` frame grouped. The port
-    takes its sort route exactly there (``slot_cap`` = the frame's pair
-    total); 17 triangle bits + 14 tile bits keep the pair key in 31."""
+    which the JAX package renders a ``group > 1`` frame grouped (there JAX
+    bins through its sort route); 17 triangle bits + 14 tile bits keep the
+    pair key in 31. The port's frames do not route on it (they all take
+    ``bin_sort``); ``multiview.sequence_demand`` reports JAX's demand by it."""
     return (n_tris < (1 << 17) and slot_cap < (1 << 17) and ntx <= 63
             and ntx * nty < (1 << 14))
 

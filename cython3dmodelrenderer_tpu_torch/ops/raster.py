@@ -31,8 +31,12 @@ truncation then ``& 255``, Lambert in the kernel's operation order.
 ``render_frame`` is the counterpart of ``raster_pallas.render_frame``
 (``:1309-1440``) for posts ``"none"``, ``"u8"``, ``"lambert_u8"`` and
 ``"fast_lambert_u8"``, and ``rasterize`` of ``raster_pallas.rasterize``
-(``:1450``). ``route_bins`` routes a frame's bins, or a view batch's, as
-``raster_pallas._stage_b`` does (``:1139-1161``).
+(``:1450``). ``route_bins`` bins every frame and view batch through the
+counting sort (B4). ``raster_pallas._stage_b`` (``:1139-1161``) sends a
+``group > 1`` frame inside the grouped budget to its sort route instead;
+the port's sort route (``binsort.bin_pairs``) gives the same bins, but in
+~36 host dispatches and a sort of wider keys where B4 takes one C call,
+so ``group`` routes nothing here.
 """
 from __future__ import annotations
 
@@ -45,18 +49,18 @@ from .. import cuda_build
 from ..config import RenderConfig
 from ..utils import timing
 from . import binning
-from .binsort import bin_pairs, bin_sort, bin_sort_plain, grouped_limits_ok
+from .binsort import bin_sort, bin_sort_plain
 from .frontend import frame_planes, frame_planes_plain
 from .illumination import cast_u8, lambert_shade
-from .sort import sort_i32, sort_i32_plain
 
 TILE_H = 16
 TILE_W = 32
 POSTS = ("none", "u8", "lambert_u8", "fast_lambert_u8")
 PLAIN_CHUNK = 2048     # pairs per pass of the plain raster (x 512 fragments)
 PLAIN_PIXELS = 1 << 20  # pixels per pass of the plain raster's winner stage
-#: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``); a
-#: ``group > 1`` frame inside ``grouped_limits_ok`` takes the sort route
+#: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``),
+#: accepted along the render path as JAX's signatures have it; it routes
+#: nothing (``route_bins``)
 GROUP = 16
 #: f32 instructions the walk of csrc/raster.cu needs per (pair, pixel)
 #: of the pair's window (its ceil bbox in the tile and the image): 4 planes
@@ -328,7 +332,7 @@ def raster_tiles(rows: torch.Tensor, pair_tri: torch.Tensor,
 def view_row_stride(nty: int, group: int) -> int:
     """``raster_pallas.view_row_stride`` (``:121``): a view's tile rows
     padded to a multiple of ``group``. The port stacks views without this
-    padding; it enters only the budget test of ``route_bins``."""
+    padding; it enters only ``multiview.sequence_demand``'s budget test."""
     return -(-nty // group) * group
 
 
@@ -336,19 +340,14 @@ def route_bins(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
                cy: torch.Tensor, ntx: int, nty: int, total: int, group: int,
                backend: str, n_views: int = 1):
     """The bins of ``n_views`` stacked ``ntx x nty`` frames (spans on the
-    ``ntx x n_views·nty`` grid), routed as ``raster_pallas._stage_b``
-    routes them: a ``group > 1`` batch inside ``grouped_limits_ok`` — with
-    ``n_views·T`` triangles, the pair total as ``slot_cap`` and
-    ``n_views · view_row_stride(nty, group)`` tile rows, as the JAX sweep
-    lays views out — takes the sort route (B2 + ``searchsorted``), every
-    other one the counting-sort route (B4). Both give the same bins.
-    ``backend``: ``"cuda"`` = the kernels' wrappers, ``"torch"`` = their
-    plain versions."""
-    sort, count_sort = ((sort_i32, bin_sort) if backend == "cuda"
-                        else (sort_i32_plain, bin_sort_plain))
-    if group > 1 and grouped_limits_ok(tx0.shape[0], total, ntx,
-                                       n_views * view_row_stride(nty, group)):
-        return bin_pairs(tx0, cx, ty0, cy, ntx, n_views * nty, total, sort=sort)
+    ``ntx x n_views·nty`` grid), always through the counting-sort route:
+    ``"cuda"`` runs ``bin_sort`` (B4, one C call), ``"torch"`` its plain
+    version ``bin_sort_plain``. They equal the bins of ``binsort.bin_pairs``
+    (B2 + ``searchsorted``), the route JAX's ``_stage_b`` takes for a
+    ``group > 1`` batch inside its grouped budget, at a fixed ~36 host
+    dispatches a call against B4's one. ``group`` is accepted as JAX's
+    signature has it and routes nothing."""
+    count_sort = bin_sort if backend == "cuda" else bin_sort_plain
     return count_sort(tx0, cx, ty0, cy, ntx, n_views * nty, total)
 
 
@@ -369,8 +368,10 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     G-buffer zeros; ``raster_pallas.py:1340-1350``). ``gbuffer=True``
     also emits the G-buffer for a post frame.
     ``backend``: ``"cuda"`` goes through the kernels' wrappers, ``"torch"``
-    through their plain versions. ``group`` routes the bins
-    (``route_bins``); both routes give the same bins, so the same pixels.
+    through their plain versions. The bins come from the counting sort
+    (``route_bins``); ``group`` is accepted as JAX's ``render_frame`` has
+    it and routes nothing (JAX's sort route gives the same bins, so the
+    same pixels).
     Returns ``(gbuf, image, n_pairs)``; the frame reads one scalar back to
     the host (its pair total, which sizes the bins exactly). A ``stats``
     dict receives ``"active_tiles"``, the count of nonempty tiles as a

@@ -16,8 +16,8 @@ every view, each as it would alone; the views' spans are stacked on one
 ``ntx x (V·nty)`` tile grid (view v's ``ty0`` offset by ``v·nty``) and
 their plane rows one after another (view v's triangle i at row ``v·T + i``).
 Every (view, tile) bin then holds only that view's triangles, in ascending
-order, so one binning pass (B2's sort route or B4's counting sort,
-``raster.route_bins``, with no kernel change) and ONE launch of B1 with a
+order, so one binning pass (B4's counting sort, ``raster.route_bins``,
+with no kernel change) and ONE launch of B1 with a
 view index (``raster_tiles(n_views=V)``) render the batch, each view
 bit-identical to its render alone. ``view_batch=1`` is the single-view
 frame.
@@ -27,8 +27,8 @@ and pads each view's tile rows to ``view_row_stride(nty, group)``: a TPU
 chunk tail can read rows of another view, which the stacked bbox test
 rejects, and the grouped binner composes groups over the padded grid. The
 port's exact per-(view, tile) bins never hold another view's rows, so
-neither is copied; the stride enters only the budget test that routes a
-batch (``raster.route_bins``).
+neither is copied; the stride enters only ``sequence_demand``'s budget
+test, which reports JAX's live-group demand.
 
 Capacity: the port sizes every batch exactly, with one host read of the
 batch's pair total, so nothing can overflow: ``p_cap`` and ``g_cap`` are
@@ -141,9 +141,10 @@ def _stacked_planes(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
 def _render_view_batch(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
                        config: RenderConfig, group: int, light, fast: bool,
                        post: str, backend: str) -> Tuple[torch.Tensor, int]:
-    """A batch of posed views through one binning pass and ONE raster
-    launch. Returns ((V, H, W, 3) images — uint8 for ``post="u8"``, else
-    float32 — and the batch's pair total, its one host read)."""
+    """A batch of posed views through one binning pass (B4, whatever
+    ``group``: it routes nothing) and ONE raster launch. Returns
+    ((V, H, W, 3) images — uint8 for ``post="u8"``, else float32 — and the
+    batch's pair total, its one host read)."""
     n_views = len(angles_b)
     h, w = config.height, config.width
     ntx, nty = -(-w // raster.TILE_W), -(-h // raster.TILE_H)

@@ -7,6 +7,9 @@ comparison is exact: the placed ids ``order[:total]``, ``starts`` and
 the int32 pair key cannot hold, against a NumPy enumeration, and a frame
 rendered through it.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,8 +20,11 @@ from cython3dmodelrenderer_tpu.ops import binsort_pallas
 
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import binsort, binsort_grouped, raster
+from cython3dmodelrenderer_tpu_torch.ops.sort import sort_i32_plain
 from cython3dmodelrenderer_tpu_torch.utils.timing import counters
-from test_torch_raster import light_direction, random_scene
+from test_torch_raster import forbid_sort_route, light_direction, random_scene
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def random_spans(t, ntx, nty, max_span, seed, zero_frac=0.0):
@@ -151,7 +157,8 @@ def test_bins_past_the_int32_pair_key():
 def test_frame_past_the_int32_pair_key_renders():
     """A frame the sort route could not bin (2^19 + 64 triangles at 2,080
     tiles: 20 + 12 key bits) renders through the counting sort, and equals
-    the frame of its 24 live triangles alone (a sort-route frame)."""
+    the frame of its 24 live triangles alone (inside the sort route's key
+    and JAX's grouped budget)."""
     h, w = 1040, 1024
     live, colors, normals = random_scene(24, 11)
     pad = (1 << 19) + 64 - len(live)
@@ -177,3 +184,103 @@ def test_frame_past_the_int32_pair_key_renders():
                  (img_big, img_ref)):
         assert torch.equal(a, b)
     assert (z_big < 1.0).float().mean() > 0.05
+
+
+def stacked_spans(t, ntx, nty, n_views, seed):
+    """Spans of ``n_views`` views of ``t`` triangles stacked on the
+    ``ntx x n_views·nty`` grid, as F1 stacks a view batch's: view v's live
+    ``ty0`` offset by ``v·nty``, culled spans left zero."""
+    views = []
+    for v in range(n_views):
+        tx0, cx, ty0, cy = random_spans(t, ntx, nty, 4, seed + v,
+                                        zero_frac=0.2)
+        views.append((tx0, cx, np.where(cx * cy > 0, ty0 + v * nty, 0), cy))
+    return [np.concatenate(parts).astype(np.int32) for parts in zip(*views)]
+
+
+#: (ntx, nty, triangles a view): inside JAX's grouped budget at every
+#: n_views here, and 64 tiles wide, past it (more than 63)
+BUDGET = {"inside": (8, 6, 150), "past": (64, 2, 100)}
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("budget", sorted(BUDGET))
+@pytest.mark.parametrize("n_views", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 16])
+def test_route_bins_takes_the_counting_sort(monkeypatch, group, n_views,
+                                            budget, backend):
+    """Every frame and view batch bins through the counting sort, whatever
+    its ``group`` and inside JAX's grouped budget or past it; its bins are
+    those of the sort route frames took inside the budget (``bin_pairs``
+    with B2's plain sort). ``"cuda"`` on CPU tensors runs B4's plain
+    version."""
+    ntx, nty, t = BUDGET[budget]
+    spans = [torch.from_numpy(a) for a in stacked_spans(t, ntx, nty, n_views,
+                                                        7 * n_views)]
+    total = int((spans[1] * spans[3]).sum())
+    assert binsort.grouped_limits_ok(
+        n_views * t, total, ntx,
+        n_views * raster.view_row_stride(nty, 16)) == (budget == "inside")
+    want = binsort.bin_pairs(*spans, ntx, n_views * nty, total,
+                             sort=sort_i32_plain)
+    forbid_sort_route(monkeypatch)
+    before = counters["launch.binsort"]
+    got = raster.route_bins(*spans, ntx, nty, total, group, backend, n_views)
+    assert counters["launch.binsort"] == before
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert total > 0 and int(got[2].sum()) == total
+
+
+def cell_mesh(config, meshes):
+    """(vertices, faces) of a benchmark configuration's mesh: the
+    displaced sphere ``meshes`` (``benchmark/reference/meshes.py``) builds
+    for trex14k, ``assets/igor_sphere.obj`` for igor6k."""
+    from cython3dmodelrenderer_tpu_torch.models.obj_io import load_obj
+
+    if config == "igor6k":
+        obj = load_obj(str(REPO / "assets" / "igor_sphere.obj"))
+        return obj.vertices, obj.faces_v
+    return meshes.displaced_sphere(128, 55)
+
+
+def reference_meshes():
+    """``benchmark/reference/meshes.py``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_reference_meshes", REPO / "benchmark" / "reference" / "meshes.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("config, n_tris, shift", [("trex14k", 13824, 4.0),
+                                                   ("igor6k", 6016, 2.0)])
+def test_routes_agree_on_the_cells_meshes(config, n_tris, shift):
+    """The spans of both benchmark cells' meshes at 1024², one posed copy
+    each (the README pose, turned 30° about y): ``bin_sort_plain`` (the
+    route every frame takes) gives the bins of ``bin_pairs`` (the route
+    these frames took before)."""
+    from cython3dmodelrenderer_tpu_torch.ops.frontend import frame_planes_plain
+
+    meshes = reference_meshes()
+    vertices, faces = cell_mesh(config, meshes)
+    assert faces.shape == (n_tris, 3)
+    pose = {"rotations": [[-90.0, 180.0, 0.0], [10.0, -80.0, 0.0]],
+            "shift": [0.0, 0.0, shift]}
+    colors = meshes.seeded_colors(len(vertices), np.random.default_rng(3))
+    st = meshes.posed_states(vertices, faces, pose, [30.0], colors)[0]
+    tri = lambda key: torch.from_numpy(st[key][faces])  # noqa: E731
+    size = 1024
+    _rows, tx0, cx, ty0, cy, _counts, total = frame_planes_plain(
+        tri("vertices"), tri("normals"), tri("colors"),
+        RenderConfig(height=size, width=size, fov=45.0), 3,
+        raster.TILE_H, raster.TILE_W)
+    total = int(total)
+    ntx, nty = size // raster.TILE_W, size // raster.TILE_H
+    assert binsort.grouped_limits_ok(n_tris, total, ntx, nty)
+    got = binsort.bin_sort_plain(tx0, cx, ty0, cy, ntx, nty, total)
+    want = binsort.bin_pairs(tx0, cx, ty0, cy, ntx, nty, total,
+                             sort=sort_i32_plain)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert total > n_tris // 4 and int((got[2] > 0).sum()) > 100

@@ -183,7 +183,8 @@ def test_frame_backends_agree(cuda):
 
 
 def test_ungrouped_frame_backends_agree(cuda):
-    """``group=1``: the counting-sort route (B4) on both backends."""
+    """A frame past JAX's grouped budget (65 tiles wide) at ``group`` 1 and
+    16: the counting-sort route (B4) on both backends."""
     tris, colors, normals = random_scene(400, 12)
     cfg = RenderConfig(height=256, width=2080, fov=50)     # 65 tiles wide
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
@@ -201,6 +202,70 @@ def test_ungrouped_frame_backends_agree(cuda):
         assert k[2] == p[2] > 0
         assert all(torch.equal(a, b) for a, b in zip(k[0], p[0]))
         assert torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("post", ["u8", "lambert_u8"])
+def test_frame_inside_the_grouped_budget_takes_b4(cuda, post):
+    """A ``group=16`` frame inside JAX's grouped budget, which took the
+    sort route before: one B4 launch and no B2, bit-equal to the plain
+    backend and to B1 over ``bin_pairs``' bins on the card (the old
+    route: B2 and its glue)."""
+    tris, colors, normals = random_scene(200, 21)
+    cfg = RenderConfig(height=1024, width=1024, fov=60)
+    args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
+    light = light_direction()
+    before = (counters["launch.binsort"], counters["launch.sort"])
+    _g, img, total = raster.render_frame(*args, cfg, post=post, light=light,
+                                         backend="cuda", group=16)
+    torch.cuda.synchronize()
+    assert (counters["launch.binsort"], counters["launch.sort"]) == \
+        (before[0] + 1, before[1])
+    assert binsort.grouped_limits_ok(len(tris), total, 32, 64), total
+    _g, plain, plain_total = raster.render_frame(
+        *args, cfg, post=post, light=light, backend="torch", group=16)
+    assert total == plain_total > 0 and torch.equal(img, plain)
+    n_attrs = 3 if post == "u8" else 6
+    rows, tx0, cx, ty0, cy, _counts, _t = frontend.frame_planes(
+        *args, cfg, n_attrs, raster.TILE_H, raster.TILE_W)
+    old_bins = binsort.bin_pairs(tx0, cx, ty0, cy, 32, 64, total)
+    _g, old = raster.raster_tiles(
+        rows, *old_bins, 32, 64, 1024, 1024, n_attrs, cfg.z_init,
+        light=light if post == "lambert_u8" else None, gbuffer=False,
+        image=True)
+    torch.cuda.synchronize()
+    assert counters["launch.sort"] == before[1] + 1
+    assert torch.equal(img, old) and int(img.max()) > 0
+
+
+@pytest.mark.parametrize("lit", [False, True])
+def test_view_batch_inside_the_grouped_budget_takes_b4(cuda, lit):
+    """A 2-view u8 batch through ``_render_view_batch`` inside JAX's
+    grouped budget: one B4 launch and no B2, bit-equal to the plain
+    backend and to B1 over ``bin_pairs``' bins of the stacked spans."""
+    tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(300, 4))
+    cfg = RenderConfig(height=1024, width=1024, fov=45)
+    angles = multiview.turntable_angles(2)
+    shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
+    light = multiview._norm_light((0.0, 0.0, 1.0)) if lit else None
+    batch = (tv, tn, tc, angles, shifts, cfg, 16, light, False, "u8")
+    before = (counters["launch.binsort"], counters["launch.sort"])
+    img, total = multiview._render_view_batch(*batch, "cuda")
+    torch.cuda.synchronize()
+    assert (counters["launch.binsort"], counters["launch.sort"]) == \
+        (before[0] + 1, before[1])
+    assert binsort.grouped_limits_ok(2 * len(tv), total, 32,
+                                     2 * raster.view_row_stride(64, 16))
+    plain, plain_total = multiview._render_view_batch(*batch, "torch")
+    assert total == plain_total > 0 and torch.equal(img, plain)
+    n_attrs = 6 if lit else 3
+    rows, tx0, cx, ty0, cy, _counts, _t = multiview._stacked_planes(
+        tv, tn, tc, angles, shifts, cfg, light=light, lean=not lit)
+    old_bins = binsort.bin_pairs(tx0, cx, ty0, cy, 32, 2 * 64, total)
+    _g, old = raster.raster_tiles(rows, *old_bins, 32, 64, 1024, 1024,
+                                  n_attrs, cfg.z_init, light=light,
+                                  gbuffer=False, image=True, n_views=2)
+    torch.cuda.synchronize()
+    assert torch.equal(img, old) and int(img.max()) > 0
 
 
 def synthetic_spans(cuda, n_tris, ntx, nty, seed):

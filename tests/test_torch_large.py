@@ -8,9 +8,9 @@ frames past ``grouped_limits_ok`` that the JAX package degrades to that
 path (an image 64 tiles wide; 2^17 + 64 triangles, after
 ``tests/test_raster_pallas.py::test_grouped_degrades_past_packing_limits``).
 It runs in a subprocess with FMA contraction off (see
-``test_torch_raster.py``), so the port must agree bit for bit. Every port
-frame here must take the counting-sort route: the sort route's entry
-point is replaced by one that fails.
+``test_torch_raster.py``), so the port must agree bit for bit. The port
+bins every frame through the counting sort, these as any other; the sort
+route's entry point and B2's wrappers are replaced by ones that fail.
 """
 import os
 import sys
@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_raster import (REPO, bits, light_direction, random_scene,
+from test_torch_raster import (REPO, bits, forbid_sort_route,
+                               light_direction, random_scene,
                                run_jax_reference, scenes)
 
 PAD_TRIS = (1 << 17) + 64
@@ -61,12 +62,9 @@ def jax_frames(tmp_path_factory):
 
 @pytest.fixture
 def counting_route_only(monkeypatch):
-    from cython3dmodelrenderer_tpu_torch.ops import raster
-
-    def sort_route(*_args, **_kwargs):
-        raise AssertionError("frame took the sort route")
-
-    monkeypatch.setattr(raster, "bin_pairs", sort_route)
+    """Every port frame bins through the counting sort: the sort route
+    raises (the JAX frames here are un-grouped or past its budget)."""
+    forbid_sort_route(monkeypatch)
 
 
 def port_frame(frame, post):
@@ -128,8 +126,10 @@ def test_rasterize_bit_equal(jax_frames, frame, counting_route_only):
 
 
 def test_filler_routes_as_the_jax_filler(jax_frames, counting_route_only):
-    """The filler's ``_group`` sends an over-budget frame (2^17 + 64
-    triangles) down the counting-sort route, its lazy G-buffer too."""
+    """An over-budget frame (2^17 + 64 triangles) through the filler, with
+    its ``_group`` of 16, equals the JAX filler's (which degrades it to
+    the un-grouped path); it and its lazy G-buffer bin through the
+    counting sort, as every frame does."""
     import cython3dmodelrenderer_tpu_torch as pt
 
     name, h, w, fov, tris, colors, normals, *_rest = frames()[-1]

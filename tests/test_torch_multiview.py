@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_raster import REPO, random_scene, run_jax_reference
+from test_torch_raster import (REPO, forbid_sort_route, random_scene,
+                               run_jax_reference)
 
 import cython3dmodelrenderer_tpu_torch as pt
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
@@ -315,11 +316,10 @@ def test_renderer_render_sequence_untextured_and_fast(jax_rotations):
 def test_view_batched_over_budget_degrades(jax_out, jax_rotations, monkeypatch,
                                            vb):
     """``test_multiview.py:385``: a frame 70 tiles wide is past the grouped
-    budget: the batch bins through the counting sort alone and matches."""
-    def no_sort_route(*args, **kwargs):
-        raise AssertionError("the sort route ran past the grouped budget")
-
-    monkeypatch.setattr(raster, "bin_pairs", no_sort_route)
+    budget, where JAX's batch degrades to the un-grouped path; the port's
+    batch bins through the counting sort, as every batch does, and
+    matches."""
+    forbid_sort_route(monkeypatch)
     tv, tn, tc = torch_scene(*wide_scene())
     angles = multiview.turntable_angles(2)
     got = multiview.render_turntable_pallas(tv, tn, tc, angles, WIDE,

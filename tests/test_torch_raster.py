@@ -100,8 +100,9 @@ def jax_frames(tmp_path_factory):
 
 
 def port_frame(h, w, fov, tris, colors, normals, post, group=16):
-    """The port's frame; ``group=16`` (the JAX side's) takes the sort route
-    on these small scenes."""
+    """The port's frame, binned by the counting sort like every frame;
+    ``group=16`` is the JAX side's, whose frames take its sort route on
+    these small scenes (the same bins)."""
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.raster import render_frame
 
@@ -109,6 +110,21 @@ def port_frame(h, w, fov, tris, colors, normals, post, group=16):
     return render_frame(torch.from_numpy(tris), torch.from_numpy(normals),
                         torch.from_numpy(colors), config, post=post,
                         light=light_direction(), group=group)
+
+
+def forbid_sort_route(monkeypatch):
+    """Make the sort route (``binsort.bin_pairs``) and B2's wrappers raise
+    wherever a module of the frame path holds them."""
+    from cython3dmodelrenderer_tpu_torch.ops import binsort, raster, sort
+
+    def sort_route(*_args, **_kwargs):
+        raise AssertionError("the frame took the sort route")
+
+    for module, names in ((raster, ("bin_pairs", "sort_i32", "sort_i32_plain")),
+                          (binsort, ("bin_pairs", "sort_i32")),
+                          (sort, ("sort_i32", "sort_i32_plain"))):
+        for name in names:
+            monkeypatch.setattr(module, name, sort_route, raising=False)
 
 
 def bits(a):

@@ -40,8 +40,8 @@ compare the two in turns; ``--binning`` traces ``--frames`` calls of each binnin
 scene's lambert_u8 spans (``binsort.bin_sort``, and ``binsort.bin_pairs``
 where the pair key fits in 31 bits): device operations and device ms a
 call. ``--raster`` times kernel B1 (``raster_tiles``) on the lambert_u8
-inputs ``chip_smoke.py`` times it on: sphere16k@1024² (sort route),
-torus262k@1024² (the B3 route) and the 2-view sweep batch. It takes the
+inputs ``chip_smoke.py`` times it on: sphere16k@1024², torus262k@1024²
+(the B3 route) and the 2-view sweep batch, each on B4's bins. It takes the
 repository's ``csrc/raster.cu`` and each extra SOURCE.cu that exports the
 same ``raster_launch`` (for example the parent commit's, unpacked with
 ``git archive``), built with the repository's nvcc flags, and measures
