@@ -100,16 +100,19 @@ class Renderer:
 
     def _fallback_colors(self, model: Model,
                          random_colors: bool) -> Optional[torch.Tensor]:
-        """(T, 3, 3) colours for untextured models, else None."""
+        """(T, 3, 3) colours for untextured models, else None. The draw and
+        its copy to the device run in the span ``fallback_colors``; a
+        textured model enters no span."""
         if model.colors_by_triangles is not None:
             return None
-        t = model.n_triangles()
-        if random_colors:
-            per_tri = torch.randint(256, (t, 3), generator=self.generator)
-        else:
-            per_tri = torch.full((t, 3), 255)
-        per_tri = per_tri.to(device=self.device, dtype=torch.float32)
-        return per_tri[:, None, :].expand(t, 3, 3).contiguous()
+        with timing.span("fallback_colors"):
+            t = model.n_triangles()
+            if random_colors:
+                per_tri = torch.randint(256, (t, 3), generator=self.generator)
+            else:
+                per_tri = torch.full((t, 3), 255)
+            per_tri = per_tri.to(device=self.device, dtype=torch.float32)
+            return per_tri[:, None, :].expand(t, 3, 3).contiguous()
 
     def _order(self, model: Model) -> Optional[torch.Tensor]:
         cls = self.triangle_iterator_type

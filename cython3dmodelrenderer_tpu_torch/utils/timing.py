@@ -13,10 +13,11 @@ The program measures itself in two ways:
   device operations. Without a running profiler it costs one check and
   enters nothing. The spans are ``render`` (a frame, ``Renderer.render``)
   and ``sequence`` (a sweep, ``Renderer.render_sequence``), and inside
-  them ``front_end`` (F1's launch and its host preparation; in a sweep
-  ``poses``, the host's pose build, nested in it), ``pair_total`` (the
-  frame's one host read), ``bins`` (the binning route) and ``raster``
-  (B1).
+  them ``fallback_colors`` (an untextured model's colours: the draw from
+  the renderer's generator and the copy to the device), ``front_end``
+  (F1's launch and its host preparation; in a sweep ``poses``, the host's
+  pose build, nested in it), ``pair_total`` (the frame's one host read),
+  ``bins`` (the binning route) and ``raster`` (B1).
 * ``counters`` holds host numbers, always on: ``launch.<kernel>``
   (kernel launches by each CUDA wrapper), ``kernel_build_s`` and
   ``kernel_load_s`` (``cuda_build.load``) and ``model_state_s``

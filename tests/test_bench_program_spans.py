@@ -24,7 +24,8 @@ SPAN_READERS = ["glue_host_us.frames", "front_end_host_us.frames",
                 "raster_host_us.frames", "idle_in_program.frames"]
 SETUP_READERS = ["setup_kernels_s", "setup_models_s"]
 #: the readers whose sum is the mean duration of a frame's ``render`` span
-ACCOUNTING = SPAN_READERS[:5]
+#: (an untextured model's, which draws its fallback colours)
+ACCOUNTING = SPAN_READERS[:5] + ["fallback_host_us.frames"]
 
 
 def reader(name):
@@ -113,7 +114,7 @@ def test_every_reader_reads_real_frames(cube_path):
     trace = tracing.Trace.from_profiler(prof, steps=frames, units=frames,
                                         unit="frame")
     got = {name: reader(name).read(trace)
-           for name in SPAN_READERS + SETUP_READERS}
+           for name in SPAN_READERS + SETUP_READERS + ACCOUNTING[5:]}
     assert all(isinstance(v, float) for v in got.values()), got
     assert 0.0 < got["idle_in_program.frames"] <= 100.0
     renders = [b - a for n, a, b in trace.host

@@ -73,7 +73,8 @@ def test_a_frame_nests_its_stages_in_render(cube):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         r.render(cube)
     spans = program_spans(prof)
-    assert [s[0] for s in spans] == ["render"] + FRAME_SPANS
+    # the cube is untextured: its colours are drawn first
+    assert [s[0] for s in spans] == ["render", "fallback_colors"] + FRAME_SPANS
     _name, lo, hi = spans[0]
     for (_n, a, b), (_m, c, _d) in zip(spans[1:], spans[2:] + [("", hi, hi)]):
         assert lo <= a <= b <= c <= hi                 # inside, in order
@@ -85,11 +86,11 @@ def test_a_sweep_nests_its_batches_in_sequence(cube):
         sweep(r, cube)
     spans = program_spans(prof)
     names = [s[0] for s in spans]
-    assert names == ["sequence"] + 2 * ["front_end", "poses", "pair_total",
-                                        "bins", "raster"]
+    assert names == ["sequence", "fallback_colors"] + 2 * [
+        "front_end", "poses", "pair_total", "bins", "raster"]
     _name, lo, hi = spans[0]
     assert all(lo <= a <= b <= hi for _n, a, b in spans[1:])
-    for i in (1, 6):                       # poses inside its batch's front end
+    for i in (2, 7):                       # poses inside its batch's front end
         assert spans[i][1] <= spans[i + 1][1] <= spans[i + 1][2] <= spans[i][2]
 
 
