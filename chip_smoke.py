@@ -517,6 +517,25 @@ def seeded_colors(model):
     return tc
 
 
+def textured(model, seed=7):
+    """``model`` handed over by ``Model.from_state`` with a seeded colour a
+    vertex (indexed like the vertices), as the benchmark's frame cells
+    hand theirs over, so its frames gather the colours
+    (``Model.colors_by_triangles``) instead of drawing fallback ones."""
+    import numpy as np
+
+    from cython3dmodelrenderer_tpu_torch import Model
+
+    faces = model._faces_v.cpu().numpy()
+    colors = np.random.RandomState(seed).uniform(
+        0, 255, (model.n_vertices(), 3)).astype(np.float32)
+    return Model.from_state(
+        {"vertices": model.vertices.cpu().numpy(), "faces_v": faces,
+         "normals": model.normals.cpu().numpy(),
+         "faces_n": model._faces_n.cpu().numpy(), "colors": colors,
+         "faces_vt": faces}, device=model.device)
+
+
 def frame_setup(model, post, size):
     """Plane rows and tile spans of a size² frame of ``model``, built with
     the port's own glue: ``(raster kwargs without bins, spans)`` where

@@ -71,6 +71,7 @@ class Model:
         self._refresh_stats()
         colors = state.get("colors")
         self._texture = self._texture_coords = None
+        self._cbt_cache = None
         if colors is None:
             self._colors = self._faces_vt = None
         else:
@@ -109,6 +110,7 @@ class Model:
         self._refresh_stats()
 
         # texture → per-vertex colors (reference model.py:135-150)
+        self._cbt_cache = None
         if texture_coords is None or triangles_texture_coords is None or texture is None:
             self._texture_coords = None
             self._faces_vt = None
@@ -144,6 +146,8 @@ class Model:
         self._invalidate_caches()
 
     def _invalidate_caches(self) -> None:
+        """Drop the geometry's triangle arrays; the colours' gather
+        (``_cbt_cache``) depends on no vertex and stays."""
         self._vbt_cache = None
         self._nbt_cache = None
 
@@ -185,7 +189,7 @@ class Model:
                               recalculate_normals=True)
 
     # ------------------------------------------------------------------
-    # batched accessors (cached; invalidated by transforms)
+    # batched accessors (cached; geometry's invalidated by transforms)
     # ------------------------------------------------------------------
 
     @property
@@ -213,10 +217,19 @@ class Model:
         return self._nbt_cache
 
     @property
+    def has_colors(self) -> bool:
+        return self._colors is not None
+
+    @property
     def colors_by_triangles(self) -> Optional[torch.Tensor]:
+        """(T, 3, 3) float32 colours, gathered once a model (counted in
+        ``colors_gathered``); callers must not write into the tensor."""
         if self._colors is None:
             return None
-        return self._colors[self._faces_vt.long()]
+        if self._cbt_cache is None:
+            self._cbt_cache = self._colors[self._faces_vt.long()]
+            timing.counters["colors_gathered"] += 1
+        return self._cbt_cache
 
     @property
     def texture(self) -> Optional[torch.Tensor]:

@@ -103,7 +103,7 @@ class Renderer:
         """(T, 3, 3) colours for untextured models, else None. The draw and
         its copy to the device run in the span ``fallback_colors``; a
         textured model enters no span."""
-        if model.colors_by_triangles is not None:
+        if model.has_colors:
             return None
         with timing.span("fallback_colors"):
             t = model.n_triangles()

@@ -20,8 +20,10 @@ The program measures itself in two ways:
   ``bins`` (the binning route) and ``raster`` (B1).
 * ``counters`` holds host numbers, always on: ``launch.<kernel>``
   (kernel launches by each CUDA wrapper), ``kernel_build_s`` and
-  ``kernel_load_s`` (``cuda_build.load``) and ``model_state_s``
-  (``Model.from_state``). Seconds are ``time.perf_counter()`` intervals.
+  ``kernel_load_s`` (``cuda_build.load``), ``model_state_s``
+  (``Model.from_state``) and ``colors_gathered`` (gathers of a textured
+  model's triangle colours, one a model). Seconds are
+  ``time.perf_counter()`` intervals.
   A frame's pair count is the filler's ``last_pairs``.
 """
 from __future__ import annotations

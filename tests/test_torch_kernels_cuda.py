@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+import cython3dmodelrenderer_tpu_torch as pt
 from cython3dmodelrenderer_tpu_torch import Model
 from cython3dmodelrenderer_tpu_torch.config import RenderConfig
 from cython3dmodelrenderer_tpu_torch.ops import (binning, binsort,
@@ -641,3 +642,27 @@ def test_frontend_render_frame_launches_once(cuda):
     torch.cuda.synchronize()
     assert (counters["launch.frontend"], counters["launch.raster"]) == (
         before[0] + 1, before[1] + 1)
+
+
+def test_textured_frames_gather_colours_once(cuda):
+    """Two lit 1024² frames of a textured model on the card gather its
+    triangle colours once (``colors_gathered``) and give identical images,
+    equal to the frame of a fresh gather handed to ``render_arrays``."""
+    model = chip_smoke.textured(chip_smoke.posed(Model(
+        *chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
+                                     chip_smoke.TRI_SPHERE_RINGS),
+        device=cuda), True))
+    shader = pt.GuroIllumination([0, 0, 1])
+    filler = pt.AdvancedPixelBufferFiller(1024, 1024, fov=chip_smoke.FOV,
+                                          device=cuda)
+    renderer = pt.Renderer(filler, shader, pt.SimpleIterator, 1024, 1024)
+    before = counters["colors_gathered"]
+    images = [renderer.render(model).array.clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert counters["colors_gathered"] == before + 1
+    assert torch.equal(images[0], images[1]) and images[0].any()
+    filler.render_arrays(model.vertices_by_triangles,
+                         model.normals_by_triangles,
+                         model._colors[model._faces_vt.long()],
+                         post="lambert_u8", light=shader.light_direction)
+    assert torch.equal(filler.get_post_image(), images[0])

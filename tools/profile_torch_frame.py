@@ -3,7 +3,8 @@
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python tools/profile_torch_frame.py [--scene sphere16k|torus262k]
-        [--size 1024] [--frames 20] [--out DIR] [--backend auto|ratio]
+        [--textured] [--size 1024] [--frames 20] [--out DIR]
+        [--backend auto|ratio]
         [--sweep 1,2,4,8] [--b5] [--binning] [--raster [SOURCE.cu ...]]
         [--rounds 4] [--p1 [PRIM ...]] [--sharded]
         [--frontend [SOURCE.cu ...]] [--span-cost CELL [--seed N]]
@@ -14,16 +15,20 @@ GuroIllumination and NoIllumination through ``Renderer.render``, traces
 ``--frames`` warm frames with ``torch.profiler``, and prints per frame:
 wall time, summed device-kernel time, the number of device operations,
 the host's launch calls by stage, the kernels ranked
-by device time (``--backend ratio``: the frames of the ratio-form
-rasterizer), and the spread of ``--frames`` frames timed one by one
-without the profiler (host clock, each fenced by a synchronize). The
+by device time, the host operations (with their input shapes) that
+launched the most device time, and the spread of ``--frames`` frames
+timed one by one without the profiler (host clock, each fenced by a
+synchronize); ``--backend ratio`` profiles the frames of the ratio-form
+rasterizer. The
 stages are the program's own spans (``utils/timing.py::span``): front
 end (F1's launch; in a sweep the host's poses apart), pair total (the
 host read), bins, raster, and the glue, the rest of ``Renderer.render``
 or ``render_sequence``; each launch call counts in the innermost span
 around it, and as "outside" in a tree without the spans. The device's
 idle share is the benchmark's ``device_idle.frames`` (a ``--trace 1``
-run of ``benchmark/run.py``).
+run of ``benchmark/run.py``). ``--textured`` renders the scene with a
+seeded colour a vertex (``chip_smoke.textured``), as the benchmark's
+frame cells do, instead of the fallback colours.
 ``--sweep`` traces instead ``--frames`` sweeps of ``chip_smoke.py``'s
 8-view turntable through ``Renderer.render_sequence`` at each listed
 view_batch (numbers per view); ``--b5`` traces ``--frames`` calls of
@@ -115,6 +120,22 @@ STAGE_LABELS = {"render": "glue", "sequence": "glue", "front_end": "front end",
                 "raster": "raster"}
 
 
+def op_device_ms(prof, n, top=8):
+    """The ``top`` host operations by the device time of the kernels they
+    launched themselves, grouped by input shapes: ms and calls a frame."""
+    def self_us(e):
+        return next((v for a in ("self_device_time_total",
+                                 "self_cuda_time_total")
+                     if (v := getattr(e, a, None))), 0.0)
+
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if str(e.device_type).endswith("CPU") and self_us(e) > 0
+           and not e.key.startswith("stage:")]
+    return [{"op": e.key, "shapes": str(e.input_shapes)[:80],
+             "ms": self_us(e) / n / 1e3, "calls": e.count / n}
+            for e in sorted(ops, key=lambda e: -self_us(e))[:top]]
+
+
 def stage_launches(prof, n):
     """Host launch calls a frame (or view) by stage: each counted in the
     innermost program span around its start ("outside" where none is, as
@@ -156,8 +177,8 @@ def trace(label, fn, reps, per, out, stages=False):
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=stages) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -176,6 +197,7 @@ def trace(label, fn, reps, per, out, stages=False):
         "top": [{"kernel": e.key[:80], "ms": device_us(e) / n / 1e3,
                  "calls": e.count / n} for e in top]}
     if stages:
+        result["top_ops"] = op_device_ms(prof, n)
         result["stage_launch_calls"] = stage_launches(prof, n)
         result["launch_calls"] = sum(result["stage_launch_calls"].values())
         result["spread_ms"] = spread(fn, reps, per)
@@ -482,6 +504,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere16k", "torus262k"),
                     default="sphere16k")
+    ap.add_argument("--textured", action="store_true")
     ap.add_argument("--size", type=int, default=1024)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
@@ -519,9 +542,12 @@ def main():
         frontend_ab(args.frontend, args.rounds)
         return
     model = scene_model(args.scene)
+    if args.textured:
+        model = chip_smoke.textured(model)
     print(smi("name,power.limit"))
-    tag = f"{args.scene}@{args.size}" + ("/ratio" if args.backend == "ratio"
-                                         else "")
+    tag = (f"{args.scene}@{args.size}" + ("/textured" if args.textured
+                                          else "")
+           + ("/ratio" if args.backend == "ratio" else ""))
     if args.binning:
         from cython3dmodelrenderer_tpu_torch.ops import binsort
 
