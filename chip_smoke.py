@@ -1429,7 +1429,7 @@ def phase_sweep(model, light):
         for v, (pv, pn) in enumerate(posed):
             img = render_frame(pv, pn, colors, config, post=post,
                                light=light if iname == "guro" else None,
-                               backend="cuda", group=16)[1]
+                               backend="cuda")[1]
             require(torch.equal(img, results[(iname, 1, fast)][v]),
                     f"sweep {iname} {post} view {v}: != render_frame")
         say("sweep", f"{iname} {post}: all {SWEEP_VIEWS} views == render_frame "
@@ -1457,7 +1457,8 @@ def sweep_batch_planes(model, colors, post, vb):
     config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
     rows, tx0, cx, ty0, cy, _counts, total = multiview._stacked_planes(
         model.vertices_by_triangles, model.normals_by_triangles, colors,
-        sweep_angles()[:vb], sweep_shifts()[:vb], config, lean=post == "u8")
+        sweep_angles()[:vb], sweep_shifts()[:vb], config,
+        3 if post == "u8" else 6)
     ntx, nty = SIZE // raster.TILE_W, SIZE // raster.TILE_H
     return rows, (tx0, cx, ty0, cy, ntx, vb * nty, int(total))
 
@@ -1471,7 +1472,7 @@ def sweep_batch_inputs(model, colors, post, vb=2):
     rows, (tx0, cx, ty0, cy, ntx, _stacked_nty, total) = sweep_batch_planes(
         model, colors, post, vb)
     nty = SIZE // raster.TILE_H
-    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, 16, "cuda", vb)
+    bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, "cuda", vb)
     kw = dict(rows=rows, ntx=ntx, nty=nty, height=SIZE, width=SIZE,
               n_attrs=3 if post == "u8" else 6, z_init=config.z_init,
               n_views=vb)
@@ -2119,7 +2120,7 @@ def sharded_cases(world, arrays):
 
     (color, z, normal, used), launches = launches_of(lambda: frame(True))
     c0, z0, n0, total = multiview._render_view_kernel(
-        tv, tn, tc, config, 16, multiview._norm_light((0.0, 0.0, 1.0)), "cuda")
+        tv, tn, tc, config, multiview._norm_light((0.0, 0.0, 1.0)), "cuda")
     # a winner's -0.0 reads +0.0 through the merge's sum of two or more
     # ranks; z is the winner's own, ±0 included
     fold = (lambda x: x) if world == 1 else (lambda x: x + 0.0)
@@ -2199,7 +2200,7 @@ def phase_sharded(tt_model, sweep_colors, torus, smi):
     tv, tn, tc = (torch.from_numpy(a).to(DEVICE) for a in arrays["torus"])
     light = multiview._norm_light((0.0, 0.0, 1.0))
     out["unsharded"]["frame"] = {"ms_per_frame": cuda_time_ms(
-        lambda: multiview._render_view_kernel(tv, tn, tc, config, 16, light,
+        lambda: multiview._render_view_kernel(tv, tn, tc, config, light,
                                               "cuda"), SHARD_REPS, warmup=2)}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/pg1",

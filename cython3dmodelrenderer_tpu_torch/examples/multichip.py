@@ -96,7 +96,6 @@ def check_mesh(mesh, device: torch.device, kernel: str) -> list:
                                          chunk=16)[1]
         else:
             want = raster.render_frame(tv2, tn, tc, CONFIG, post="none",
-                                       group=raster.GROUP,
                                        backend=backend)[0][1]
         _require_bits(z, want, f"{backend} triangle-sharded z")
         covered = float((z < CONFIG.z_init).float().mean())

@@ -100,9 +100,6 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
         self._post_image: Optional[torch.Tensor] = None
         self.last_pairs = 0            # (triangle, tile) pairs of the last frame
         self._active_tiles = None      # its nonempty tiles (device scalar)
-        # the JAX filler's lane-subgroup packing (fillers.py:251-253), passed
-        # along as JAX passes it; it routes nothing (ops/raster.py::route_bins)
-        self._group: int = raster.GROUP
         self.reset_buffers()
 
     def get_size(self) -> Tuple[int, int]:
@@ -162,8 +159,7 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
         stats = {}
         gbuf, img, self.last_pairs = raster.render_frame(
             tri_verts, tri_norms, tri_colors, self.config, post=post,
-            light=light, gbuffer=gbuffer, backend=self.backend,
-            group=self._group, stats=stats)
+            light=light, gbuffer=gbuffer, backend=self.backend, stats=stats)
         self._active_tiles = stats["active_tiles"]
         self._post_image = img
         self._gbuf = gbuf
@@ -207,7 +203,7 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
             tv, tn, tc, post, light = self._deferred
             self._gbuf, _img, _n = raster.render_frame(
                 tv, tn, tc, self.config, post=post, light=light, gbuffer=True,
-                backend=self.backend, group=self._group)
+                backend=self.backend)
             self._deferred = None
 
     def get_post_image(self) -> Optional[torch.Tensor]:

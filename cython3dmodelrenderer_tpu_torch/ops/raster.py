@@ -31,12 +31,12 @@ truncation then ``& 255``, Lambert in the kernel's operation order.
 ``render_frame`` is the counterpart of ``raster_pallas.render_frame``
 (``:1309-1440``) for posts ``"none"``, ``"u8"``, ``"lambert_u8"`` and
 ``"fast_lambert_u8"``, and ``rasterize`` of ``raster_pallas.rasterize``
-(``:1450``). ``route_bins`` bins every frame and view batch through the
-counting sort (B4). ``raster_pallas._stage_b`` (``:1139-1161``) sends a
-``group > 1`` frame inside the grouped budget to its sort route instead;
-the port's sort route (``binsort.bin_pairs``) gives the same bins, but in
-~36 host dispatches and a sort of wider keys where B4 takes one C call,
-so ``group`` routes nothing here.
+(``:1450``). A frame and a sweep's view batch share ``frame_stages``;
+``route_bins`` bins both through the counting sort (B4), where
+``raster_pallas._stage_b`` (``:1139-1161``) sends a ``group > 1`` frame
+inside the grouped budget to its sort route. The port's sort route
+(``binsort.bin_pairs``) gives the same bins in ~36 host dispatches where
+B4 takes one C call, so the port's render path takes no ``group``.
 """
 from __future__ import annotations
 
@@ -58,9 +58,8 @@ TILE_W = 32
 POSTS = ("none", "u8", "lambert_u8", "fast_lambert_u8")
 PLAIN_CHUNK = 2048     # pairs per pass of the plain raster (x 512 fragments)
 PLAIN_PIXELS = 1 << 20  # pixels per pass of the plain raster's winner stage
-#: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``),
-#: accepted along the render path as JAX's signatures have it; it routes
-#: nothing (``route_bins``)
+#: the JAX filler's lane-subgroup packing (``raster_pallas.GROUP``): the
+#: default of the ``multiview`` entry points' ``group``, which routes nothing
 GROUP = 16
 #: f32 instructions the walk of csrc/raster.cu needs per (pair, pixel)
 #: of the pair's window (its ceil bbox in the tile and the image): 4 planes
@@ -336,29 +335,65 @@ def view_row_stride(nty: int, group: int) -> int:
     return -(-nty // group) * group
 
 
+def stage_functions(backend: str):
+    """(front end, binning, raster) of ``backend``: the kernels' wrappers
+    (F1, B4, B1) for ``"cuda"``, their plain versions for ``"torch"``. The
+    frame path's one such choice; the names are looked up in this module
+    at each call, so a wrapper set on the module is the one a frame runs."""
+    if backend == "cuda":
+        return frame_planes, bin_sort, raster_tiles
+    return frame_planes_plain, bin_sort_plain, raster_tiles_plain
+
+
+def attr_channels(lit: bool, fast: bool, gbuffer: bool) -> int:
+    """A frame's attribute channels: 3 (colours) when nothing reads the
+    normals — fast shade bakes Lambert into the vertex colours; an unlit
+    (not ``lit`` by the normals) frame with no G-buffer — else 6."""
+    return 3 if fast or not (lit or gbuffer) else binning.N_ATTRS
+
+
 def route_bins(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
-               cy: torch.Tensor, ntx: int, nty: int, total: int, group: int,
+               cy: torch.Tensor, ntx: int, nty: int, total: int,
                backend: str, n_views: int = 1):
     """The bins of ``n_views`` stacked ``ntx x nty`` frames (spans on the
-    ``ntx x n_views·nty`` grid), always through the counting-sort route:
-    ``"cuda"`` runs ``bin_sort`` (B4, one C call), ``"torch"`` its plain
-    version ``bin_sort_plain``. They equal the bins of ``binsort.bin_pairs``
-    (B2 + ``searchsorted``), the route JAX's ``_stage_b`` takes for a
-    ``group > 1`` batch inside its grouped budget, at a fixed ~36 host
-    dispatches a call against B4's one. ``group`` is accepted as JAX's
-    signature has it and routes nothing."""
-    count_sort = bin_sort if backend == "cuda" else bin_sort_plain
-    return count_sort(tx0, cx, ty0, cy, ntx, n_views * nty, total)
+    ``ntx x n_views·nty`` grid) through the counting sort (B4 or its plain
+    version). They equal the bins of ``binsort.bin_pairs`` (B2 +
+    ``searchsorted``), the route JAX's ``_stage_b`` takes for a ``group >
+    1`` batch inside its grouped budget."""
+    return stage_functions(backend)[1](tx0, cx, ty0, cy, ntx, n_views * nty,
+                                       total)
+
+
+def frame_stages(planes, config: RenderConfig, n_attrs: int, backend: str,
+                 light=None, gbuffer: bool = True, image: bool = False,
+                 n_views: int = 1, stats: Optional[dict] = None):
+    """Pair total → bins → raster of ``n_views`` stacked views from the
+    front end's outputs ``planes``; the other arguments as in
+    ``raster_tiles``. Returns ``(gbuf, image, n_pairs)``. A ``stats`` dict
+    receives ``"active_tiles"``, the nonempty tiles as a device scalar."""
+    rows, tx0, cx, ty0, cy, _counts, total = planes
+    h, w = config.height, config.width
+    ntx, nty = -(-w // TILE_W), -(-h // TILE_H)
+    with timing.span("pair_total"):
+        total = int(total)                      # the one host read
+    with timing.span("bins"):
+        bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, backend, n_views)
+    if stats is not None:
+        stats["active_tiles"] = (bins[2] > 0).sum()
+    with timing.span("raster"):
+        gbuf, img = stage_functions(backend)[2](
+            rows, *bins, ntx, nty, h, w, n_attrs, config.z_init, light=light,
+            gbuffer=gbuffer, image=image, n_views=n_views)
+    return gbuf, img, total
 
 
 def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  tri_colors: torch.Tensor, config: RenderConfig,
                  post: str = "none", light=None, gbuffer: bool = False,
-                 backend: str = "torch", group: int = 1,
-                 stats: Optional[dict] = None
+                 backend: str = "torch", stats: Optional[dict] = None
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor], int]:
-    """One frame: the front end (F1: cull, project, plane rows, spans) →
-    bins → raster (B1).
+    """One frame: the front end (F1: cull, project, plane rows, spans),
+    then ``frame_stages`` (pair total → bins → raster, B1).
 
     ``post``: ``"none"`` (G-buffer only), ``"u8"`` (uint8 colour image),
     ``"lambert_u8"`` (Lambert-shaded with ``light``, the pre-negated unit
@@ -367,24 +402,16 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     Gouraud image, the z-buffer bit-equal to exact mode, the normal
     G-buffer zeros; ``raster_pallas.py:1340-1350``). ``gbuffer=True``
     also emits the G-buffer for a post frame.
-    ``backend``: ``"cuda"`` goes through the kernels' wrappers, ``"torch"``
-    through their plain versions. The bins come from the counting sort
-    (``route_bins``); ``group`` is accepted as JAX's ``render_frame`` has
-    it and routes nothing (JAX's sort route gives the same bins, so the
-    same pixels).
-    Returns ``(gbuf, image, n_pairs)``; the frame reads one scalar back to
-    the host (its pair total, which sizes the bins exactly). A ``stats``
-    dict receives ``"active_tiles"``, the count of nonempty tiles as a
-    device scalar (no host read).
+    ``backend`` as in ``stage_functions``. Returns ``(gbuf, image,
+    n_pairs)``, with one host read (the pair total, which sizes the bins
+    exactly); ``stats`` as in ``frame_stages``.
     """
     if post not in POSTS:
         raise ValueError(f"unknown post {post!r}")
     fast = post == "fast_lambert_u8"
     if post in ("lambert_u8", "fast_lambert_u8") and light is None:
         raise ValueError(f"post={post!r} needs a light direction")
-    raster = raster_tiles if backend == "cuda" else raster_tiles_plain
     h, w = config.height, config.width
-    ntx, nty = -(-w // TILE_W), -(-h // TILE_H)
     emit_gbuf = post == "none" or gbuffer
     want_img = post != "none"
     if tri_verts.shape[0] == 0:                 # empty scene → background
@@ -396,27 +423,15 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                                                 device=dev)
         return (background(h, w, config.z_init, dev) if emit_gbuf else None,
                 img, 0)
-    # hot u8 frames never read normals: 3 attribute channels (25 columns);
-    # fast shade bakes Lambert into the vertex colours (Gouraud)
-    n_attrs = (3 if fast or (post == "u8" and not emit_gbuf)
-               else binning.N_ATTRS)
-    planes = frame_planes if backend == "cuda" else frame_planes_plain
+    lit = post == "lambert_u8"
+    n_attrs = attr_channels(lit, fast, emit_gbuf)
     with timing.span("front_end"):
-        rows, tx0, cx, ty0, cy, _counts, total = planes(
+        planes = stage_functions(backend)[0](
             tri_verts, tri_norms, tri_colors, config, n_attrs, TILE_H, TILE_W,
             shade=light if fast else None)
-    with timing.span("pair_total"):
-        total = int(total)                      # the frame's one host read
-    with timing.span("bins"):
-        bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, group, backend)
-    if stats is not None:
-        stats["active_tiles"] = (bins[2] > 0).sum()
-    with timing.span("raster"):
-        gbuf, img = raster(rows, *bins, ntx, nty, h, w, n_attrs,
-                           config.z_init,
-                           light=light if post == "lambert_u8" else None,
-                           gbuffer=emit_gbuf, image=want_img)
-    return gbuf, img, total
+    return frame_stages(planes, config, n_attrs, backend,
+                        light=light if lit else None, gbuffer=emit_gbuf,
+                        image=want_img, stats=stats)
 
 
 def rasterize(tris_screen: torch.Tensor, colors: torch.Tensor,

@@ -16,11 +16,10 @@ every view, each as it would alone; the views' spans are stacked on one
 ``ntx x (V·nty)`` tile grid (view v's ``ty0`` offset by ``v·nty``) and
 their plane rows one after another (view v's triangle i at row ``v·T + i``).
 Every (view, tile) bin then holds only that view's triangles, in ascending
-order, so one binning pass (B4's counting sort, ``raster.route_bins``,
-with no kernel change) and ONE launch of B1 with a
-view index (``raster_tiles(n_views=V)``) render the batch, each view
-bit-identical to its render alone. ``view_batch=1`` is the single-view
-frame.
+order, so the frame's own stages (``raster.frame_stages``: one binning
+pass through B4's counting sort and ONE launch of B1 with a view index,
+``raster_tiles(n_views=V)``) render the batch, each view bit-identical to
+its render alone. ``view_batch=1`` is the single-view frame.
 
 The JAX sweep also moves each view's y-bbox to stacked image coordinates
 and pads each view's tile rows to ``view_row_stride(nty, group)``: a TPU
@@ -60,7 +59,7 @@ import torch.distributed as dist
 from ..config import RenderConfig
 from ..ops import binning, raster, raster_ref
 from ..ops.binsort import expand_pairs, grouped_limits_ok
-from ..ops.frontend import frame_planes, frame_planes_plain, pose_triangles
+from ..ops.frontend import pose_triangles
 from ..ops.illumination import lambert_shade
 from ..ops.projection import project_to_screen, visibility_masks
 from ..ops.transforms import rotation_matrix
@@ -116,69 +115,51 @@ def _norm_light(light_direction) -> Optional[np.ndarray]:
 
 
 def _stacked_planes(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
-                    config: RenderConfig, light=None, fast: bool = False,
-                    lean: bool = False, backend: str = "cuda"):
+                    config: RenderConfig, n_attrs: int = binning.N_ATTRS,
+                    shade=None, backend: str = "cuda"):
     """Pose, cull, project and plane-stage a batch of views, stacked: rows
     ``(V·T, R)`` view after view, spans on the ``ntx x V·nty`` grid, and
-    the batch's pair total (0-dim int64) — ``frontend.frame_planes``, one
-    launch of F1 for the batch (``backend="torch"``: its plain version).
-    ``tri_colors=None`` gives geometry-only rows (the demand helpers);
-    ``fast`` bakes Lambert into the colours with the POSED normals; a
-    ``lean`` (unlit u8) batch never reads the normal channels. Shared by
-    the batch renderer and ``sequence_demand``, as JAX's
+    the batch's pair total — one call of ``backend``'s front end (F1).
+    ``n_attrs=0`` with ``tri_colors=None`` gives geometry-only rows;
+    ``shade`` bakes Lambert into the colours with the POSED normals. Shared
+    by the batch renderer and ``sequence_demand``, as JAX's
     ``_batched_view_spans`` is, so the two see the same pairs."""
     with timing.span("poses"):
         poses = torch.stack([_pose_matrix(a, s)
                              for a, s in zip(angles_b, shifts_b)])
-    n_attrs = (0 if tri_colors is None else 3 if (fast or lean)
-               else binning.N_ATTRS)
-    planes = frame_planes if backend == "cuda" else frame_planes_plain
+    planes = raster.stage_functions(backend)[0]
     return planes(tri_verts, tri_norms, tri_colors, config, n_attrs,
-                  raster.TILE_H, raster.TILE_W,
-                  shade=light if fast else None, poses=poses)
+                  raster.TILE_H, raster.TILE_W, shade=shade, poses=poses)
 
 
 def _render_view_batch(tri_verts, tri_norms, tri_colors, angles_b, shifts_b,
-                       config: RenderConfig, group: int, light, fast: bool,
-                       post: str, backend: str) -> Tuple[torch.Tensor, int]:
-    """A batch of posed views through one binning pass (B4, whatever
-    ``group``: it routes nothing) and ONE raster launch. Returns
-    ((V, H, W, 3) images — uint8 for ``post="u8"``, else float32 — and the
-    batch's pair total, its one host read)."""
+                       config: RenderConfig, light, fast: bool, post: str,
+                       backend: str) -> Tuple[torch.Tensor, int]:
+    """A batch of posed views through ``raster.frame_stages`` (one binning
+    pass, ONE raster launch). Returns ((V, H, W, 3) images — uint8 for
+    ``post="u8"``, else float32 — and the batch's pair total)."""
     n_views = len(angles_b)
-    h, w = config.height, config.width
-    ntx, nty = -(-w // raster.TILE_W), -(-h // raster.TILE_H)
-    lean = post == "u8" and light is None and not fast
-    n_attrs = 3 if (fast or lean) else binning.N_ATTRS
+    lit = light is not None and not fast
+    u8 = post == "u8"
+    n_attrs = raster.attr_channels(lit, fast, not u8)
     with timing.span("front_end"):
-        rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
-            tri_verts, tri_norms, tri_colors, angles_b, shifts_b, config,
-            light=light, fast=fast, lean=lean, backend=backend)
-    with timing.span("pair_total"):
-        total = int(total)                  # the batch's one host read
-    with timing.span("bins"):
-        bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, total, group,
-                                 backend, n_views)
-    rast = raster.raster_tiles if backend == "cuda" else raster.raster_tiles_plain
-    with timing.span("raster"):
-        if post == "u8":     # shaded (unless pre-shaded or unlit) in-kernel
-            _gbuf, img = rast(rows, *bins, ntx, nty, h, w, n_attrs,
-                              config.z_init,
-                              light=None if (fast or light is None) else light,
-                              gbuffer=False, image=True, n_views=n_views)
-        else:                # f32: the G-buffer, shaded outside the kernel
-            (img, _z, normal), _img = rast(rows, *bins, ntx, nty, h, w,
-                                           n_attrs, config.z_init,
-                                           gbuffer=True, n_views=n_views)
-            if not (fast or light is None):
-                img = lambert_shade(img, normal, light)
-    return img.reshape(n_views, h, w, 3), total
+        planes = _stacked_planes(tri_verts, tri_norms, tri_colors, angles_b,
+                                 shifts_b, config, n_attrs,
+                                 shade=light if fast else None,
+                                 backend=backend)
+    gbuf, img, total = raster.frame_stages(
+        planes, config, n_attrs, backend, light=light if lit and u8 else None,
+        gbuffer=not u8, image=u8, n_views=n_views)
+    if not u8:          # f32: the G-buffer, shaded outside the kernel
+        img, _z, normal = gbuf
+        if lit:
+            img = lambert_shade(img, normal, light)
+    return img.reshape(n_views, config.height, config.width, 3), total
 
 
 def _run_sweep(tri_verts, tri_norms, tri_colors, angles, shifts,
-               config: RenderConfig, group: int, light, post: str,
-               view_batch: int, fast_shade: bool,
-               backend: str) -> Tuple[torch.Tensor, int]:
+               config: RenderConfig, light, post: str, view_batch: int,
+               fast_shade: bool, backend: str) -> Tuple[torch.Tensor, int]:
     """The one sweep behind the turntable and sequence entry points:
     consecutive batches of ``view_batch`` poses. Returns the (N, H, W, 3)
     frames and the peak per-batch pair total."""
@@ -195,8 +176,8 @@ def _run_sweep(tri_verts, tri_norms, tri_colors, angles, shifts,
     for b0 in range(0, n, view_batch):
         img, total = _render_view_batch(
             tri_verts, tri_norms, tri_colors, angles[b0:b0 + view_batch],
-            shifts[b0:b0 + view_batch], config, group, light, fast_shade,
-            post, backend)
+            shifts[b0:b0 + view_batch], config, light, fast_shade, post,
+            backend)
         images.append(img)
         peak = max(peak, total)
     if not images:
@@ -227,13 +208,13 @@ def render_sequence_pallas(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     ``"fast_lambert_u8"``). ``check_capacity=True`` also returns the peak
     per-batch pair total (module docstring). ``backend``: ``"cuda"`` =
     the kernels' wrappers (CPU tensors run their plain versions),
-    ``"torch"`` = the plain versions. ``p_cap``, ``chunk``, ``interpret``
-    and ``g_cap`` are accepted and have no effect.
+    ``"torch"`` = the plain versions. ``p_cap``, ``chunk``, ``interpret``,
+    ``group`` and ``g_cap`` are accepted and have no effect.
     """
-    del p_cap, chunk, interpret, g_cap
+    del p_cap, chunk, interpret, group, g_cap
     images, peak = _run_sweep(
         tri_verts, tri_norms, tri_colors, _host_f32(angles).reshape(-1, 3),
-        _host_f32(shifts).reshape(-1, 3), config, group,
+        _host_f32(shifts).reshape(-1, 3), config,
         _norm_light(light_direction), post, view_batch, fast_shade, backend)
     return (images, peak) if check_capacity else images
 
@@ -249,14 +230,15 @@ def render_turntable_pallas(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                             g_cap: int = 0, backend: str = "cuda"):
     """``render_sequence_pallas`` with one shift, ``post_shift``, for
     every view. ``tri_verts`` should be centred (``fit_model`` without its
-    final z shift)."""
+    final z shift). ``p_cap``, ``chunk``, ``interpret``, ``group`` and
+    ``g_cap`` have no effect."""
     angles = _host_f32(angles).reshape(-1, 3)
     shifts = np.broadcast_to(_host_f32(post_shift), angles.shape)
     return render_sequence_pallas(
         tri_verts, tri_norms, tri_colors, angles, shifts, config,
-        light_direction=light_direction, group=group,
-        check_capacity=check_capacity, post=post, view_batch=view_batch,
-        fast_shade=fast_shade, backend=backend)
+        light_direction=light_direction, check_capacity=check_capacity,
+        post=post, view_batch=view_batch, fast_shade=fast_shade,
+        backend=backend)
 
 
 def sequence_demand(tri_verts, tri_norms, angles, shifts,
@@ -287,7 +269,7 @@ def sequence_demand(tri_verts, tri_norms, angles, shifts,
     for b0 in range(0, n, view_batch):
         _rows, tx0, cx, ty0, cy, _counts, total = _stacked_planes(
             tri_verts, tri_norms, None, angles[b0:b0 + view_batch],
-            shifts[b0:b0 + view_batch], config)
+            shifts[b0:b0 + view_batch], config, n_attrs=0)
         total = int(total)
         peak = max(peak, total)
         if grouped:
@@ -401,10 +383,10 @@ def render_turntable_sharded(tri_verts, tri_norms, tri_colors, angles,
     versions, with ``view_batch`` views a launch. ``check_capacity=True``
     also returns the mesh maximum of each rank's peak per-batch pair total
     (0 on ``"ratio"``). The port sizes every batch exactly, so nothing can
-    overflow: ``p_cap``, ``auto_resize`` and ``interpret`` are accepted and
-    have no effect.
+    overflow: ``p_cap``, ``auto_resize``, ``interpret`` and ``group`` are
+    accepted and have no effect.
     """
-    del p_cap, interpret, auto_resize
+    del p_cap, interpret, auto_resize, group
     angles = _host_f32(angles).reshape(-1, 3)
     n = angles.shape[0]
     pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
@@ -426,7 +408,7 @@ def render_turntable_sharded(tri_verts, tri_norms, tri_colors, angles,
     else:
         images, peak = render_turntable_pallas(
             tri_verts, tri_norms, tri_colors, mine, config,
-            post_shift=post_shift, group=group, check_capacity=True,
+            post_shift=post_shift, check_capacity=True,
             view_batch=view_batch, backend=backend)
     if check_capacity:
         return images, _mesh_max(peak, pg, tri_verts.device)
@@ -445,8 +427,8 @@ def triangle_shard_capacity(tri_verts, tri_norms, config: RenderConfig,
                             mesh, axis: str = "tris",
                             group: int = raster.GROUP, headroom_num: int = 5,
                             headroom_den: int = 4) -> int:
-    """The mesh maximum of the per-shard pair totals (each rank culls,
-    projects and bins its shard), times ``headroom_num // headroom_den``
+    """The mesh maximum of the per-shard pair totals (each rank's front
+    end, F1, on its shard), times ``headroom_num // headroom_den``
     in integers (JAX ``multiview.py:657``). JAX's ``capacity_bucket``
     rounding is not ported (ROADMAP A15), and neither is its grouped slot
     count: ``group`` is accepted and has no effect. The value is for API
@@ -454,23 +436,20 @@ def triangle_shard_capacity(tri_verts, tri_norms, config: RenderConfig,
     del group
     pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
     tv, tn = _shard(tri_verts, n_dev, r), _shard(tri_norms, n_dev, r)
-    degenerate, backfacing = visibility_masks(tv, tn)
-    counts = binning.plane_data(project_to_screen(tv, config),
-                                ~degenerate & ~backfacing, config,
-                                raster.TILE_H, raster.TILE_W)[-1]
-    peak = _mesh_max(int(counts.sum()), pg, tri_verts.device)
+    total = raster.frame_planes(tv, tn, None, config, 0, raster.TILE_H,
+                                raster.TILE_W)[-1]
+    peak = _mesh_max(int(total), pg, tri_verts.device)
     return peak * headroom_num // headroom_den
 
 
 def _render_view_kernel(tri_verts, tri_norms, tri_colors, config: RenderConfig,
-                        group: int, light, backend: str):
+                        light, backend: str):
     """JAX ``_render_view_pallas(post="none")`` (``multiview.py:125-186``):
     the G-buffer frame (``raster.render_frame``), Lambert-shaded with the
     pre-negated unit ``light`` unless it is None. Returns (colour, z,
     normal, pair total)."""
     (color, z, normal), _img, total = raster.render_frame(
-        tri_verts, tri_norms, tri_colors, config, post="none", group=group,
-        backend=backend)
+        tri_verts, tri_norms, tri_colors, config, post="none", backend=backend)
     if light is not None:
         color = lambert_shade(color, normal, light)
     return color, z, normal, total
@@ -521,10 +500,10 @@ def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
     lowest shard among exact-z winners holds the lowest triangle, and the
     kernel backends' z equals the unsharded frame's on any rank count.
     ``check_capacity=True`` appends the mesh maximum of the shards' pair
-    totals (0 on ``"ratio"``). ``p_cap`` and ``interpret`` are accepted and
-    have no effect.
+    totals (0 on ``"ratio"``). ``p_cap``, ``interpret`` and ``group`` are
+    accepted and have no effect.
     """
-    del p_cap, interpret
+    del p_cap, interpret, group
     pg, n_dev, r = _mesh_axis(mesh, axis, tri_verts.device)
     tv, tn, tc = (_shard(x, n_dev, r)
                   for x in (tri_verts, tri_norms, tri_colors))
@@ -535,7 +514,7 @@ def render_triangle_sharded(tri_verts, tri_norms, tri_colors,
         used = 0
     else:
         color, z, normal, used = _render_view_kernel(
-            tv, tn, tc, config, group, _norm_light(light_direction), backend)
+            tv, tn, tc, config, _norm_light(light_direction), backend)
     color, z, normal = _merge_partials(color, z, normal, r, pg)
     if check_capacity:
         return color, z, normal, _mesh_max(used, pg, tri_verts.device)

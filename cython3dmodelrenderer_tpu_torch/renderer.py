@@ -228,10 +228,9 @@ class Renderer:
                 shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]),
                                          angles.shape)
             return multiview.render_sequence_pallas(
-                tv, tn, tri_colors, angles, shifts, filler.config,
-                group=filler._group, post="u8", view_batch=view_batch,
-                fast_shade=fast_shade, light_direction=light_direction,
-                backend=filler.backend)
+                tv, tn, tri_colors, angles, shifts, filler.config, post="u8",
+                view_batch=view_batch, fast_shade=fast_shade,
+                light_direction=light_direction, backend=filler.backend)
 
     def reset_buffers(self) -> None:
         self.n_buffer.clear()

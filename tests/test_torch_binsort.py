@@ -175,7 +175,7 @@ def test_frame_past_the_int32_pair_key_renders():
         return raster.render_frame(torch.from_numpy(tv), torch.from_numpy(tn),
                                    torch.from_numpy(tc), config,
                                    post="lambert_u8", light=light_direction(),
-                                   gbuffer=True, group=16)
+                                   gbuffer=True)
 
     (c_big, z_big, n_big), img_big, n_pairs = frame(tris, normals_b, colors_b)
     (c_ref, z_ref, n_ref), img_ref, ref_pairs = frame(live, normals, colors)
@@ -186,14 +186,15 @@ def test_frame_past_the_int32_pair_key_renders():
     assert (z_big < 1.0).float().mean() > 0.05
 
 
-def stacked_spans(t, ntx, nty, n_views, seed):
+def stacked_spans(t, ntx, nty, n_views, seed, zero_frac):
     """Spans of ``n_views`` views of ``t`` triangles stacked on the
     ``ntx x n_views·nty`` grid, as F1 stacks a view batch's: view v's live
-    ``ty0`` offset by ``v·nty``, culled spans left zero."""
+    ``ty0`` offset by ``v·nty``, culled spans (``zero_frac`` of them)
+    left zero."""
     views = []
     for v in range(n_views):
         tx0, cx, ty0, cy = random_spans(t, ntx, nty, 4, seed + v,
-                                        zero_frac=0.2)
+                                        zero_frac=zero_frac)
         views.append((tx0, cx, np.where(cx * cy > 0, ty0 + v * nty, 0), cy))
     return [np.concatenate(parts).astype(np.int32) for parts in zip(*views)]
 
@@ -206,17 +207,17 @@ BUDGET = {"inside": (8, 6, 150), "past": (64, 2, 100)}
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 @pytest.mark.parametrize("budget", sorted(BUDGET))
 @pytest.mark.parametrize("n_views", [1, 2, 4])
-@pytest.mark.parametrize("group", [1, 16])
-def test_route_bins_takes_the_counting_sort(monkeypatch, group, n_views,
+@pytest.mark.parametrize("zero_frac", [0.0, 0.2])
+def test_route_bins_takes_the_counting_sort(monkeypatch, zero_frac, n_views,
                                             budget, backend):
-    """Every frame and view batch bins through the counting sort, whatever
-    its ``group`` and inside JAX's grouped budget or past it; its bins are
-    those of the sort route frames took inside the budget (``bin_pairs``
-    with B2's plain sort). ``"cuda"`` on CPU tensors runs B4's plain
-    version."""
+    """Every frame and view batch bins through the counting sort, with no
+    culled triangle or a fifth culled, inside JAX's grouped budget or past
+    it; its bins are those of the sort route frames took inside the budget
+    (``bin_pairs`` with B2's plain sort). ``"cuda"`` on CPU tensors runs
+    B4's plain version."""
     ntx, nty, t = BUDGET[budget]
-    spans = [torch.from_numpy(a) for a in stacked_spans(t, ntx, nty, n_views,
-                                                        7 * n_views)]
+    spans = [torch.from_numpy(a) for a in stacked_spans(
+        t, ntx, nty, n_views, 7 * n_views, zero_frac)]
     total = int((spans[1] * spans[3]).sum())
     assert binsort.grouped_limits_ok(
         n_views * t, total, ntx,
@@ -225,7 +226,7 @@ def test_route_bins_takes_the_counting_sort(monkeypatch, group, n_views,
                              sort=sort_i32_plain)
     forbid_sort_route(monkeypatch)
     before = counters["launch.binsort"]
-    got = raster.route_bins(*spans, ntx, nty, total, group, backend, n_views)
+    got = raster.route_bins(*spans, ntx, nty, total, backend, n_views)
     assert counters["launch.binsort"] == before
     for a, b in zip(got, want):
         assert a.dtype == torch.int32 and torch.equal(a, b)

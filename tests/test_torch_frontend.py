@@ -179,8 +179,9 @@ def test_posed_batch_equals_the_per_view_loop(variant):
                                 poses=poses)
     for backend in ("cuda", "torch"):
         again = multiview._stacked_planes(tv, tn, colors, angles, shifts,
-                                          config, light=light, fast=fast,
-                                          lean=tag == "lean", backend=backend)
+                                          config, n_attrs,
+                                          shade=light if fast else None,
+                                          backend=backend)
         for a, b in zip(got, again):
             assert torch.equal(a.view(torch.int32) if a.is_floating_point()
                                else a, b.view(torch.int32)
@@ -322,10 +323,10 @@ def test_render_frame_calls_the_wrapper_once(monkeypatch, post):
     plain = counting(monkeypatch, raster, "frame_planes_plain")
     light = light_direction()
     a = raster.render_frame(tris, normals, colors, config, post=post,
-                            light=light, backend="cuda", group=16)
+                            light=light, backend="cuda")
     assert (len(calls), len(plain)) == (1, 0)
     b = raster.render_frame(tris, normals, colors, config, post=post,
-                            light=light, backend="torch", group=16)
+                            light=light, backend="torch")
     assert (len(calls), len(plain)) == (1, 1)
     assert a[2] == b[2] > 0
     for x, y in zip(a[:2], b[:2]):
@@ -339,7 +340,7 @@ def test_render_frame_calls_the_wrapper_once(monkeypatch, post):
 def test_sweep_calls_the_wrapper_once_a_batch(monkeypatch, view_batch):
     """One ``frame_planes`` call a view batch, every view posed in it."""
     tv, tn, tc, _angles, _shifts, config = posed_batch()
-    calls = counting(monkeypatch, multiview, "frame_planes")
+    calls = counting(monkeypatch, raster, "frame_planes")
     images = multiview.render_turntable_pallas(
         tv, tn, tc, multiview.turntable_angles(8), config,
         view_batch=view_batch)
@@ -352,14 +353,14 @@ def test_sequence_demand_uses_geometry_rows(monkeypatch):
     rows, no colours)."""
     tv, tn, _tc, angles, shifts, config = posed_batch()
     calls = []
-    fn = multiview.frame_planes
+    fn = raster.frame_planes
 
     def wrapped(*args, **kwargs):
         out = fn(*args, **kwargs)
         calls.append(out[0].shape[1])
         return out
 
-    monkeypatch.setattr(multiview, "frame_planes", wrapped)
+    monkeypatch.setattr(raster, "frame_planes", wrapped)
     p_cap, _g_cap = multiview.sequence_demand(tv, tn, angles, shifts, config,
                                               view_batch=3)
     assert calls == [binning.row_width(0)] and p_cap > 0

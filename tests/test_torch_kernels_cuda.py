@@ -173,9 +173,9 @@ def test_frame_backends_agree(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
     for post in ("none", "u8", "lambert_u8"):
         k = raster.render_frame(*args, cfg, post=post, light=light_direction(),
-                                backend="cuda", group=16)
+                                backend="cuda")
         p = raster.render_frame(*args, cfg, post=post, light=light_direction(),
-                                backend="torch", group=16)
+                                backend="torch")
         assert k[2] == p[2]
         if post == "none":
             assert all(torch.equal(a, b) for a, b in zip(k[0], p[0]))
@@ -184,30 +184,27 @@ def test_frame_backends_agree(cuda):
 
 
 def test_ungrouped_frame_backends_agree(cuda):
-    """A frame past JAX's grouped budget (65 tiles wide) at ``group`` 1 and
-    16: the counting-sort route (B4) on both backends."""
+    """A frame past JAX's grouped budget (65 tiles wide): the counting-sort
+    route (B4) on both backends."""
     tris, colors, normals = random_scene(400, 12)
     cfg = RenderConfig(height=256, width=2080, fov=50)     # 65 tiles wide
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
-    for group in (1, 16):
-        before = (counters["launch.binsort"], counters["launch.sort"])
-        k = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
-                                light=light_direction(), backend="cuda",
-                                group=group)
-        p = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
-                                light=light_direction(), backend="torch",
-                                group=group)
-        torch.cuda.synchronize()
-        assert (counters["launch.binsort"], counters["launch.sort"]) == \
-            (before[0] + 1, before[1])
-        assert k[2] == p[2] > 0
-        assert all(torch.equal(a, b) for a, b in zip(k[0], p[0]))
-        assert torch.equal(k[1], p[1])
+    before = (counters["launch.binsort"], counters["launch.sort"])
+    k = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
+                            light=light_direction(), backend="cuda")
+    p = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
+                            light=light_direction(), backend="torch")
+    torch.cuda.synchronize()
+    assert (counters["launch.binsort"], counters["launch.sort"]) == \
+        (before[0] + 1, before[1])
+    assert k[2] == p[2] > 0
+    assert all(torch.equal(a, b) for a, b in zip(k[0], p[0]))
+    assert torch.equal(k[1], p[1])
 
 
 @pytest.mark.parametrize("post", ["u8", "lambert_u8"])
 def test_frame_inside_the_grouped_budget_takes_b4(cuda, post):
-    """A ``group=16`` frame inside JAX's grouped budget, which took the
+    """A frame inside JAX's grouped budget (at ``group=16``), which took the
     sort route before: one B4 launch and no B2, bit-equal to the plain
     backend and to B1 over ``bin_pairs``' bins on the card (the old
     route: B2 and its glue)."""
@@ -217,13 +214,13 @@ def test_frame_inside_the_grouped_budget_takes_b4(cuda, post):
     light = light_direction()
     before = (counters["launch.binsort"], counters["launch.sort"])
     _g, img, total = raster.render_frame(*args, cfg, post=post, light=light,
-                                         backend="cuda", group=16)
+                                         backend="cuda")
     torch.cuda.synchronize()
     assert (counters["launch.binsort"], counters["launch.sort"]) == \
         (before[0] + 1, before[1])
     assert binsort.grouped_limits_ok(len(tris), total, 32, 64), total
     _g, plain, plain_total = raster.render_frame(
-        *args, cfg, post=post, light=light, backend="torch", group=16)
+        *args, cfg, post=post, light=light, backend="torch")
     assert total == plain_total > 0 and torch.equal(img, plain)
     n_attrs = 3 if post == "u8" else 6
     rows, tx0, cx, ty0, cy, _counts, _t = frontend.frame_planes(
@@ -248,7 +245,7 @@ def test_view_batch_inside_the_grouped_budget_takes_b4(cuda, lit):
     angles = multiview.turntable_angles(2)
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
     light = multiview._norm_light((0.0, 0.0, 1.0)) if lit else None
-    batch = (tv, tn, tc, angles, shifts, cfg, 16, light, False, "u8")
+    batch = (tv, tn, tc, angles, shifts, cfg, light, False, "u8")
     before = (counters["launch.binsort"], counters["launch.sort"])
     img, total = multiview._render_view_batch(*batch, "cuda")
     torch.cuda.synchronize()
@@ -260,7 +257,7 @@ def test_view_batch_inside_the_grouped_budget_takes_b4(cuda, lit):
     assert total == plain_total > 0 and torch.equal(img, plain)
     n_attrs = 6 if lit else 3
     rows, tx0, cx, ty0, cy, _counts, _t = multiview._stacked_planes(
-        tv, tn, tc, angles, shifts, cfg, light=light, lean=not lit)
+        tv, tn, tc, angles, shifts, cfg, n_attrs)
     old_bins = binsort.bin_pairs(tx0, cx, ty0, cy, 32, 2 * 64, total)
     _g, old = raster.raster_tiles(rows, *old_bins, 32, 64, 1024, 1024,
                                   n_attrs, cfg.z_init, light=light,
@@ -337,10 +334,10 @@ def batch_inputs(cuda, h, w, n_views, t, seed, n_attrs):
     angles = multiview.turntable_angles(n_views)
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (n_views, 3))
     rows, tx0, cx, ty0, cy, counts, _total = multiview._stacked_planes(
-        tv, tn, tc, angles, shifts, cfg, lean=n_attrs == 3)
+        tv, tn, tc, angles, shifts, cfg, n_attrs)
     ntx, nty = -(-w // 32), -(-h // 16)
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
-                             16, "cuda", n_views)
+                             "cuda", n_views)
     kw = dict(rows=rows, pair_tri=bins[0], tile_starts=bins[1],
               tile_counts=bins[2], ntx=ntx, nty=nty, height=h, width=w,
               n_attrs=n_attrs, z_init=1e6)
@@ -368,10 +365,9 @@ def test_raster_kernel_view_batch(cuda, n_views, h, w, post):
         assert a.shape[:3] == (n_views, h, w) and torch.equal(a, b)
     for v in range(n_views):
         r1, tx0, cx, ty0, cy, counts, _total = multiview._stacked_planes(
-            tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg,
-            lean=post == "u8")
+            tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg, kw["n_attrs"])
         bins = raster.route_bins(tx0, cx, ty0, cy, kw["ntx"], kw["nty"],
-                                 int(counts.sum()), 16, "cuda")
+                                 int(counts.sum()), "cuda")
         single = raster.raster_tiles(r1, *bins, kw["ntx"], kw["nty"], h, w,
                                      kw["n_attrs"], 1e6, **opts)
         single = single[0] if post == "none" else (single[1],)
@@ -638,7 +634,7 @@ def test_frontend_render_frame_launches_once(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
     before = (counters["launch.frontend"], counters["launch.raster"])
     raster.render_frame(*args, cfg, post="lambert_u8", light=light_direction(),
-                        backend="cuda", group=16)
+                        backend="cuda")
     torch.cuda.synchronize()
     assert (counters["launch.frontend"], counters["launch.raster"]) == (
         before[0] + 1, before[1] + 1)

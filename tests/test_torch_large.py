@@ -71,11 +71,11 @@ def port_frame(frame, post):
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.raster import render_frame
 
-    _name, h, w, fov, tris, colors, normals, _lean, group, _ras = frame
+    _name, h, w, fov, tris, colors, normals, *_rest = frame
     return render_frame(torch.from_numpy(tris), torch.from_numpy(normals),
                         torch.from_numpy(colors),
                         RenderConfig(height=h, width=w, fov=fov), post=post,
-                        light=light_direction(), group=group)
+                        light=light_direction())
 
 
 def assert_gbuffer_equal(gbuf, jax_frames, prefix):
@@ -126,15 +126,15 @@ def test_rasterize_bit_equal(jax_frames, frame, counting_route_only):
 
 
 def test_filler_routes_as_the_jax_filler(jax_frames, counting_route_only):
-    """An over-budget frame (2^17 + 64 triangles) through the filler, with
-    its ``_group`` of 16, equals the JAX filler's (which degrades it to
-    the un-grouped path); it and its lazy G-buffer bin through the
-    counting sort, as every frame does."""
+    """An over-budget frame (2^17 + 64 triangles) through the filler, which
+    takes no ``group``, equals the JAX filler's at its ``group`` of 16
+    (which degrades it to the un-grouped path); it and its lazy G-buffer
+    bin through the counting sort, as every frame does."""
     import cython3dmodelrenderer_tpu_torch as pt
 
     name, h, w, fov, tris, colors, normals, *_rest = frames()[-1]
     filler = pt.AdvancedPixelBufferFiller(h, w, fov=fov, device="cpu")
-    assert filler._group == 16
+    assert not hasattr(filler, "_group")
     filler.render_arrays(*(torch.from_numpy(a) for a in (tris, normals, colors)),
                          post="lambert_u8", light=light_direction())
     np.testing.assert_array_equal(filler.get_post_image().numpy(),

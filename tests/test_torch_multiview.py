@@ -195,8 +195,8 @@ def test_view_batched_sweep_bit_identical(jax_out, jax_rotations, vb):
 
 def test_view_batched_counting_route(jax_out, jax_rotations):
     """``test_multiview.py:253``: a view batch binned by the counting sort
-    (``group=1``) renders each view's z-buffer as JAX's single-view
-    un-grouped frame does."""
+    (JAX's ``group=1`` route) renders each view's z-buffer as JAX's
+    single-view un-grouped frame does."""
     tv, tn, tc = torch_scene(*tiny_scene(24, 9))
     angles = multiview.turntable_angles(2)
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
@@ -204,12 +204,47 @@ def test_view_batched_counting_route(jax_out, jax_rotations):
         tv, tn, tc, angles, shifts, CONFIG)
     ntx, nty = 2, 4
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
-                             group=1, backend="torch", n_views=2)
+                             backend="torch", n_views=2)
     (color, z, _n), _img = raster.raster_tiles_plain(
         rows, *bins, ntx, nty, 64, 64, 6, CONFIG.z_init, n_views=2)
     assert z.shape == (2, 64, 64, 1)
     for i in range(2):
         assert_bit_equal(z[i], jax_out[f"ungrouped_z/{i}"])
+
+
+@pytest.mark.parametrize("path", ["frame", "view_batch"])
+def test_stages_run_once_through_their_modules(monkeypatch, path):
+    """A frame and a 2-view batch each call the front end, the binning and
+    the raster once, through the module attributes a tracer wraps
+    (``raster.frame_planes``, ``route_bins``, ``raster_tiles``; a batch's
+    front end inside ``multiview._stacked_planes``)."""
+    calls = []
+
+    def count(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    for name in ("frame_planes", "route_bins", "raster_tiles"):
+        count(raster, name)
+    count(multiview, "_stacked_planes")
+    tv, tn, tc = torch_scene(*tiny_scene(24, 9))
+    if path == "frame":
+        _g, img, total = raster.render_frame(
+            tv + torch.tensor([0.0, 0.0, 1.0]), tn, tc, CONFIG, post="u8",
+            backend="cuda")
+    else:
+        shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
+        img, total = multiview._render_view_batch(
+            tv, tn, tc, multiview.turntable_angles(2), shifts, CONFIG, None,
+            False, "u8", "cuda")
+        assert calls.pop(0) == "_stacked_planes"
+    assert calls == ["frame_planes", "route_bins", "raster_tiles"]
+    assert total > 0 and int(img.max()) > 0
 
 
 @pytest.mark.parametrize("vb", [1, 2])
@@ -339,9 +374,9 @@ def test_fast_shade_frame_matches_jax(jax_out, size):
     args = [torch.from_numpy(a) for a in (tris, normals, colors)]
     light = multiview._norm_light(LIGHTS["raster"])
     (color, z, normal), img, _n = raster.render_frame(
-        *args, cfg, post="fast_lambert_u8", light=light, gbuffer=True, group=16)
+        *args, cfg, post="fast_lambert_u8", light=light, gbuffer=True)
     (_c, z_exact, _nn), exact_img, _n = raster.render_frame(
-        *args, cfg, post="lambert_u8", light=light, gbuffer=True, group=16)
+        *args, cfg, post="lambert_u8", light=light, gbuffer=True)
     assert_bit_equal(img, jax_out[f"ff/{size}/img"])
     assert_bit_equal(color, jax_out[f"ff/{size}/color"])
     assert_bit_equal(z, jax_out[f"ff/{size}/z_exact"])
@@ -361,7 +396,7 @@ def test_filler_fast_shade(jax_out):
     filler.render_arrays(*args, post="lambert_u8", light=light)
     (color, z, normal), img, _n = raster.render_frame(
         *args, RenderConfig(height=64, width=64, fov=60),
-        post="fast_lambert_u8", light=light, gbuffer=True, group=16)
+        post="fast_lambert_u8", light=light, gbuffer=True)
     assert torch.equal(filler.get_post_image(), img)
     assert torch.equal(filler.get_z_buffer(), z)
     assert torch.equal(filler.get_color_buffer(), color)
@@ -380,7 +415,7 @@ def test_raster_view_batch_equals_single_views():
     stacked = multiview._stacked_planes(tv, tn, tc, angles, shifts, cfg)
     rows, tx0, cx, ty0, cy, counts, _total = stacked
     bins = raster.route_bins(tx0, cx, ty0, cy, ntx, nty, int(counts.sum()),
-                             16, "torch", n_views=2)
+                             "torch", n_views=2)
     gb, img = raster.raster_tiles(rows, *bins, ntx, nty, 72, 100, 6,
                                   cfg.z_init, light=light, image=True,
                                   n_views=2)
@@ -389,7 +424,7 @@ def test_raster_view_batch_equals_single_views():
         r1, tx1, cx1, ty1, cy1, c1, _t1 = multiview._stacked_planes(
             tv, tn, tc, angles[v:v + 1], shifts[v:v + 1], cfg)
         bins1 = raster.route_bins(tx1, cx1, ty1, cy1, ntx, nty,
-                                  int(c1.sum()), 16, "torch")
+                                  int(c1.sum()), "torch")
         g1, i1 = raster.raster_tiles(r1, *bins1, ntx, nty, 72, 100, 6,
                                      cfg.z_init, light=light, image=True)
         assert torch.equal(img[v], i1)

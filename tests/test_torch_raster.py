@@ -99,17 +99,17 @@ def jax_frames(tmp_path_factory):
                              tmp_path_factory.mktemp("jax_raster"))
 
 
-def port_frame(h, w, fov, tris, colors, normals, post, group=16):
-    """The port's frame, binned by the counting sort like every frame;
-    ``group=16`` is the JAX side's, whose frames take its sort route on
-    these small scenes (the same bins)."""
+def port_frame(h, w, fov, tris, colors, normals, post):
+    """The port's frame, binned by the counting sort like every frame; the
+    JAX side's ``group=16`` frames take its sort route on these small
+    scenes (the same bins)."""
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.raster import render_frame
 
     config = RenderConfig(height=h, width=w, fov=fov)
     return render_frame(torch.from_numpy(tris), torch.from_numpy(normals),
                         torch.from_numpy(colors), config, post=post,
-                        light=light_direction(), group=group)
+                        light=light_direction())
 
 
 def forbid_sort_route(monkeypatch):
@@ -193,7 +193,7 @@ def test_wrapper_routes_cpu_tensors_to_plain():
                               torch.from_numpy(colors),
                               RenderConfig(height=h, width=w, fov=fov),
                               post="lambert_u8", light=light_direction(),
-                              backend="cuda", group=16)
+                              backend="cuda")
     assert torch.equal(out[1], img)
     assert counters["launch.raster"] == before      # no kernel on the CPU
 

@@ -401,7 +401,7 @@ def test_triangle_sharded_z_equals_unsharded(runs, world):
     ranks = runs["ranks"][world]
     sc = scenes()
     (color, z, normal), _img, _n = raster.render_frame(
-        *torch_scene(*sc["E"]), CONFIG, post="none", group=raster.GROUP)
+        *torch_scene(*sc["E"]), CONFIG, post="none")
     color = multiview.lambert_shade(color, normal, multiview._norm_light(
         (0.0, 0.0, 1.0)))
     assert_bit_equal(ranks[0]["tri_torch/z"], z)
@@ -477,7 +477,7 @@ def test_world_of_one_in_process(tmp_path):
             tv2, tn, tc, CONFIG, mesh, axis="views", backend="torch",
             check_capacity=True)
         (c0, z0, n0), _img, total = raster.render_frame(
-            tv2, tn, tc, CONFIG, post="none", group=raster.GROUP)
+            tv2, tn, tc, CONFIG, post="none")
         c0 = multiview.lambert_shade(c0, n0, multiview._norm_light((0, 0, 1)))
         for a, b in ((color, c0), (z, z0), (normal, n0)):
             assert_bit_equal(a, b)

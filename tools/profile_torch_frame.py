@@ -252,7 +252,7 @@ def raster_inputs(sphere, torus):
         kw, (tx0, cx, ty0, cy, ntx, nty, total) = chip_smoke.frame_setup(
             model, "lambert_u8", 1024)
         out[tag] = chip_smoke.with_bins(kw, raster.route_bins(
-            tx0, cx, ty0, cy, ntx, nty, total, raster.GROUP, "cuda"))
+            tx0, cx, ty0, cy, ntx, nty, total, "cuda"))
     out["sweep vb2"] = chip_smoke.sweep_batch_inputs(*turntable_inputs(),
                                                      "lambert_u8")
     return out
@@ -352,7 +352,7 @@ def sharded(model, size, frames, out):
         try:
             mesh = make_mesh([("tris", 1)])
             trace(f"unsharded_frame_{size}", lambda: multiview._render_view_kernel(
-                tv, tn, tc, config, 16, light, "cuda"), frames, 1, out)
+                tv, tn, tc, config, light, "cuda"), frames, 1, out)
             trace(f"triangle_sharded_world1_{size}",
                   lambda: multiview.render_triangle_sharded(
                       tv, tn, tc, config, mesh, backend="cuda"),
