@@ -11,9 +11,10 @@ Phases (one line each; any failure exits nonzero):
              fails when CUDA is unavailable (no CPU fallback);
 2. build   — builds kernels B1 (csrc/raster.cu), B2 and B4 (the radix-sort
              core, csrc/radix_sort.cu), B5 (csrc/binsort_grouped.cu), P2
-             (csrc/vpu_cal.cu), P1 (csrc/epi_prims.cu) and F1 (the front
-             end, csrc/frontend.cu) from the repository's sources, one
-             nvcc each, all started together;
+             (csrc/vpu_cal.cu), P1 (csrc/epi_prims.cu), F1 (the front
+             end, csrc/frontend.cu) and the fallback colours' expansion
+             (csrc/colors.cu) from the repository's sources, one nvcc
+             each, all started together;
 3. kernels — each kernel against its plain PyTorch version on the card:
              B2 (exact, and equal to itself on a second call) on keys
              with duplicates at 0 to 2^18 + 17 keys, both sides of the
@@ -33,15 +34,21 @@ Phases (one line each; any failure exits nonzero):
              1, 127, 128, 129, 257 and 259 triangles (around F1's block of
              128) and posed in 3 views at 45 and 200, and on
              no triangles (phases 6 and 7 add the large frames and the
-             sweep's posed batches of 4 and 8 views);
+             sweep's posed batches of 4 and 8 views); the fallback
+             colours' expansion (csrc/colors.cu) bit for bit on the same
+             pinned bytes as its plain version, at 0 to 871,824 triangles
+             (igor_sphere's 6,016 and the Dragon's 871,824), on a stream
+             given and on the current one, then its ms and the plain
+             version's (a copy and an expand) at those two counts;
 4. main    — Renderer.render at 1024², fov 45, with GuroIllumination and
              NoIllumination, on (a) assets/igor_sphere.obj, (b) a
              16,128-triangle displaced UV sphere built in memory and
              (c) $CRENDER_OBJECTS/T-Rex.obj when that file exists; checks
              the images against the plain path, determinism, the lazy
              z-buffer and that B4 and B1 launched (the counting-sort
-             route, which every frame takes) and B2 not, and F1 once a
-             frame (as many launches as B1);
+             route, which every frame takes) and B2 not, F1 once a
+             frame (as many launches as B1) and csrc/colors.cu once an
+             untextured frame, and never on the plain path;
              one Renderer, filler and model built with no device
              argument must render on the card (the default device);
 5. timing  — median steady-state ms/frame of 60 warm frames per scene
@@ -161,7 +168,8 @@ operations this run's inputs need over 33.5 T instructions/s; P1's
 ``max_abs_err`` is the one-replica difference that its checks hold; the
 three B1/B3 entries, B5, P1, P2 and the three F1 entries (sphere16k and
 torus262k at 1024², 6 channels, and the sweep's 4-view batch) also carry
-``device_ms`` and ``device_ops``); the last line is ``{"ok": true,
+``device_ms`` and ``device_ops``; the two entries of the colours'
+expansion are bound by bytes, the PCIe read or the card's write); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 import json
@@ -178,7 +186,7 @@ POSTS = ("none", "u8", "lambert_u8")
 TRI_SPHERE_SEGMENTS, TRI_SPHERE_RINGS = 128, 64
 TORUS_QUADS = (512, 256)           # 262,144 triangles
 KERNEL_SOURCES = ("radix_sort", "raster", "binsort_grouped", "vpu_cal",
-                  "epi_prims", "frontend")
+                  "epi_prims", "frontend", "colors")
 # B2's checks: key counts and (key width, sort bits)
 SORT_CHECK_SIZES = (0, 1, 2, 1000, 17473, 78000, (1 << 17) - 1, 1 << 17,
                     (1 << 17) + 1, (1 << 18) + 17)
@@ -222,6 +230,10 @@ FRONTEND_EDGE_FRAMES = ((SIZE, SIZE), (72, 100))
 # triangle counts around F1's block of 128: one, a block less one, a block,
 # a block and one, two and one, and a 3-row tail (no whole 16-byte chunks)
 FRONTEND_COUNTS = (1, 127, 128, 129, 257, 259)
+# csrc/colors.cu's checks (around its block of 256) and its timed counts
+COLORS_CHECK_SIZES = (0, 1, 255, 256, 257, 6016, 871_824)
+COLORS_TIMED = (("igor6k", 6016), ("dragon871k", 871_824))
+PCIE_BYTES_PER_S = 64e9            # PCIe 5.0 x16, one direction
 
 
 class SmokeFailure(Exception):
@@ -630,6 +642,16 @@ def frontend_bound(args, kwargs, outputs):
     return roofline_ms(nbytes(*inputs, *outputs), ops)
 
 
+def colors_bound(t):
+    """csrc/colors.cu: 3 bytes a triangle read from pinned host memory
+    over PCIe and 36 written to the card's memory; the slower of the
+    two."""
+    from cython3dmodelrenderer_tpu_torch.measure import HBM_BYTES_PER_S
+
+    return (max(3 * t / PCIE_BYTES_PER_S, 36 * t / HBM_BYTES_PER_S) * 1e3,
+            "bytes")
+
+
 def pair_keys(spans):
     """The packed pair keys ``bin_pairs`` gives B2 for ``spans``, and their
     width in bits."""
@@ -891,6 +913,45 @@ def phase_kernels_frontend(scenes, light):
             check_frontend(f"{tag} {vtag}", args, kw)
 
 
+def phase_kernels_colors():
+    """The fallback colours' expansion (``ops/colors.py::vertex_colors``,
+    csrc/colors.cu) against ``vertex_colors_plain`` on the same pinned
+    bytes copied to the card: bit for bit, on the current stream and on a
+    stream given; then CUDA-event ms of each at ``COLORS_TIMED``."""
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch.measure import cuda_time_ms
+    from cython3dmodelrenderer_tpu_torch.ops.colors import (
+        vertex_colors, vertex_colors_plain)
+
+    dev = torch.device(DEVICE)
+    stream = torch.cuda.current_stream(dev)
+    pinned = {}
+    for t in COLORS_CHECK_SIZES:
+        per_tri = torch.randint(256, (t, 3), dtype=torch.uint8,
+                                generator=torch.Generator().manual_seed(t))
+        per_tri = per_tri.pin_memory()
+        want = vertex_colors_plain(per_tri.to(dev))
+        for got in (vertex_colors(per_tri, dev),
+                    vertex_colors(per_tri, dev, stream)):
+            require(got.dtype == torch.float32 and torch.equal(got, want),
+                    f"vertex_colors T={t}: != vertex_colors_plain")
+        pinned[t] = per_tri
+    say("kernels", "vertex_colors (csrc/colors.cu) == vertex_colors_plain "
+        f"bit for bit at T = {', '.join(map(str, COLORS_CHECK_SIZES))}")
+    times = {}
+    for tag, t in COLORS_TIMED:
+        per_tri = pinned[t]
+        ms = cuda_time_ms(lambda: vertex_colors(per_tri, dev, stream), 100)
+        plain = cuda_time_ms(lambda: vertex_colors_plain(
+            per_tri.to(dev, non_blocking=True)), 100)
+        times[tag] = {"ms": ms, "plain_ms": plain, "bound": colors_bound(t)}
+        say("kernels", f"vertex_colors {tag} ({t} triangles): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{times[tag]['bound'][0]:.4f} ms")
+    return times
+
+
 def phase_kernels(scenes, light):
     import torch
 
@@ -1059,7 +1120,7 @@ def phase_main(scenes):
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
-    before = launch_counts("raster", "binsort", "sort", "frontend")
+    before = launch_counts("raster", "binsort", "sort", "frontend", "colors")
     results = {}
     for name, model in scenes.items():
         for iname, illum in illums:
@@ -1071,7 +1132,13 @@ def phase_main(scenes):
     default = default_device_render()
     torch.cuda.synchronize()
     launches = launches_since(before)
+    # each render of an untextured model draws its colours once; the
+    # no-device render is of igor_sphere
+    untextured = (sum(2 for name, _illum in results
+                      if not scenes[name].has_colors)
+                  + (not scenes["igor_sphere"].has_colors))
 
+    plain_before = launch_counts("colors")
     for (name, iname), (renderer, img1, img2, z) in results.items():
         lit = check_frame(f"{name}/{iname}", img1, img2, z, SIZE)
         # the same frame through the plain versions, on the card
@@ -1089,6 +1156,8 @@ def phase_main(scenes):
             f"no device argument: rendered on {img.device}")
     require(torch.equal(img, results[("igor_sphere", "guro")][1]),
             "no device argument: igor_sphere guro differs from the cuda frame")
+    require(launches_since(plain_before)["colors"] == 0,
+            "the plain-version frames launched csrc/colors.cu")
     say("main", f"Renderer, filler and Model.read_model with no device: on "
         f"{img.device}, backend {renderer.pixel_buffer_filler.backend}, "
         "== the igor_sphere guro frame")
@@ -1098,6 +1167,9 @@ def phase_main(scenes):
     # every frame (the lazy z getter's re-render too) runs F1 once, B1 once
     require(launches["frontend"] == launches["raster"],
             f"F1 was not launched once a frame: {launches}")
+    require(untextured > 0 and launches["colors"] == untextured,
+            f"csrc/colors.cu was not launched once an untextured frame "
+            f"({untextured} frames): {launches}")
     say("main", f"kernel launches on the main path: {launches}")
     return launches, results
 
@@ -2410,6 +2482,7 @@ def main():
         light = GuroIllumination([0, 0, 1]).light_direction
         sort_err, raster_err, inputs = phase_kernels(scenes, light)
         phase_kernels_frontend(scenes, light)
+        colors_ms = phase_kernels_colors()
         launches, results = phase_main(scenes)
         frame_ms, kt, bounds = phase_timing(scenes, results, inputs, light)
         large = load_large_scenes("cuda", scenes)
@@ -2436,6 +2509,7 @@ def main():
     frame_ms.update(large_ms)
     frame_ms["sweep_ms_per_view"] = sweep_ms
     frame_ms["b5_sphere16k@1024"] = b5_ms
+    frame_ms["vertex_colors"] = colors_ms
 
     def entry(name, source, replaces, n, err, times, bound, library=None,
               device=None):
@@ -2495,7 +2569,13 @@ def main():
                  large_ms[f"frontend_torus262k@{SIZE}_c6"]),
         f1_entry("sweep batch x4 C=6", sweep_launches["frontend_batched"],
                  sweep_ms["frontend_vb4"]),
-    ]
+    ] + [
+        # checked bit for bit; launches: the main path's untextured frames
+        entry(f"vertex_colors {tag}", "colors.cu",
+              "cython3dmodelrenderer_tpu/renderer.py:92 (a NumPy draw on "
+              "the host and its copy, not a pallas_call site)",
+              launches["colors"], 0.0, (c["ms"], c["plain_ms"]), c["bound"])
+        for tag, c in colors_ms.items()]
     print(json.dumps({"frame_ms": frame_ms}), flush=True)
     print(json.dumps({"probes": probes}), flush=True)
     print(json.dumps({"surface": surface}), flush=True)

@@ -3,10 +3,8 @@
 Counterpart of ``cython3dmodelrenderer_tpu/native/objparse_native.py``.
 The library builds at first use with ``g++ -O2 -shared -fPIC -std=c++17``
 (a plain C ABI, no pybind11) into ``build/native/libobjparse-<hash>.so``
-beside the package; the hash covers the source and the flags, so an edited
-source never loads a stale library. Each build writes a temporary file of
-its own and renames it into place, so processes that build at once (test
-workers) never load a half-written library.
+beside the package, as the package's ``build_library`` builds every
+native source.
 
 Where no ``g++`` is installed, ``available()`` is False and
 ``models/obj_io.py`` parses in Python (the JAX package's contract for this
@@ -15,15 +13,14 @@ host parser; the result is the same). A compiler that fails raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from .. import native
 
 SOURCE = Path(__file__).resolve().parent / "objparse.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
@@ -34,25 +31,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libobjparse-{digest[:16]}.so"
+    return native.library_path(SOURCE, BUILD_DIR, "objparse", CXX_FLAGS)
 
 
 def build(cxx: str) -> Path:
     """Compile ``objparse.cpp`` with ``cxx`` unless its library exists;
     return the library's path."""
-    out = library_path()
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        res = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                             capture_output=True, text=True, timeout=300,
-                             check=False)
-        if res.returncode != 0:
-            raise RuntimeError(f"{cxx} failed for {SOURCE}:\n{res.stderr}")
-        os.replace(tmp, out)
-    return out
+    return native.build_library(cxx, SOURCE, BUILD_DIR, "objparse",
+                                CXX_FLAGS)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -22,8 +22,12 @@ The filler's type picks the path, as in JAX (``renderer.py:75-80``):
   ``draw_illumination``.
 
 Untextured models get per-triangle colours from the renderer's
-``torch.Generator``. ``render_sequence`` renders a pose sequence through the
-multi-view sweep (``parallel.multiview``).
+``torch.Generator``: the stream of ``torch.randint(256, (T, 3))``, drawn
+by ``native/mt_draw.cpp`` where it can into pinned memory, which
+``csrc/colors.cu`` reads from the card without a synchronisation (a
+``"torch"`` or ``"ratio"`` filler copies them and expands them in
+PyTorch). ``render_sequence`` renders a pose sequence through the multi-view sweep
+(``parallel.multiview``).
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ from .fillers import (AdvancedPixelBufferFiller, EdgeOnlyPixelBufferFiller,
                       PixelBufferFiller)
 from .models.buffer import Buffer
 from .models.model import Model
+from .native import mt_draw_native
+from .ops.colors import vertex_colors, vertex_colors_plain
 from .ops.illumination import (GuroIllumination, IlluminationDrawer,
                                NoIllumination, cast_u8)
 from .ops.wireframe import LineBresenham
@@ -64,6 +70,7 @@ class Renderer:
             device = getattr(pixel_buffer_filler, "device", None)
         self.device = resolve_device(device)
         self.generator = generator if generator is not None else torch.Generator()
+        self._staging: Optional[_PinnedColors] = None
         self.color_buffer = Buffer(image_height, image_width, dim=3,
                                    dtype="uint8", device=self.device)
         self.z_buffer = Buffer(image_height, image_width, dim=1, init_val=1e6,
@@ -100,19 +107,41 @@ class Renderer:
 
     def _fallback_colors(self, model: Model,
                          random_colors: bool) -> Optional[torch.Tensor]:
-        """(T, 3, 3) colours for untextured models, else None. The draw and
-        its copy to the device run in the span ``fallback_colors``; a
-        textured model enters no span."""
+        """(T, 3, 3) float32 colours for untextured models, else None: the
+        next ``torch.randint(256, (T, 3))`` of the renderer's generator
+        (else white), one colour for the three vertices of each triangle.
+        The draw and its way to the device run in the span
+        ``fallback_colors``; a textured model enters no span."""
         if model.has_colors:
             return None
         with timing.span("fallback_colors"):
             t = model.n_triangles()
-            if random_colors:
-                per_tri = torch.randint(256, (t, 3), generator=self.generator)
-            else:
-                per_tri = torch.full((t, 3), 255)
-            per_tri = per_tri.to(device=self.device, dtype=torch.float32)
-            return per_tri[:, None, :].expand(t, 3, 3).contiguous()
+            if not random_colors:
+                return torch.full((t, 3, 3), 255.0, dtype=torch.float32,
+                                  device=self.device)
+            # the filler's backend picks kernel or plain, as
+            # raster.stage_functions does; a filler without one (the
+            # per-triangle loop, the wireframe) takes the card's kernel
+            backend = getattr(self.pixel_buffer_filler, "backend", "cuda")
+            if self.device.type == "cuda" and backend == "cuda":
+                if self._staging is None or self._staging.t != t:
+                    self._staging = _PinnedColors(t)
+                return self._staging.send(self._draw_into, self.device)
+            host = torch.empty((t, 3), dtype=torch.uint8)
+            self._draw_into(host)
+            return vertex_colors_plain(host.to(self.device))
+
+    def _draw_into(self, host: torch.Tensor) -> None:
+        """Fill the uint8 CPU tensor ``host`` as ``torch.randint(256,
+        host.shape)`` from the renderer's generator: natively where the
+        generator's state is the layout ``native/mt_draw.cpp`` reads, else
+        with ``torch.randint``; the counters say which."""
+        if mt_draw_native.draw_u8(self.generator, host):
+            timing.counters["fallback_draws_native"] += 1
+        else:
+            torch.randint(256, host.shape, generator=self.generator,
+                          out=host)
+            timing.counters["fallback_draws_torch"] += 1
 
     def _order(self, model: Model) -> Optional[torch.Tensor]:
         cls = self.triangle_iterator_type
@@ -238,3 +267,31 @@ class Renderer:
         self.color_buffer.clear()
         if isinstance(self.pixel_buffer_filler, AdvancedPixelBufferFiller):
             self.pixel_buffer_filler.reset_buffers()
+
+
+class _PinnedColors:
+    """A pinned (t, 3) uint8 host buffer for the fallback colours, and an
+    event recorded after the last launch that read it
+    (``ops/colors.py::vertex_colors``, straight from the host). A draw
+    rewrites the buffer only once that event has passed, and waits for it
+    otherwise. Every render path reads from the device after the launch
+    (the pair total, the wireframe's line length, the per-triangle path's
+    copy to the host), so frames never wait here, and no launch is queued
+    when a renderer drops the buffer for another T."""
+
+    def __init__(self, t: int):
+        self.t = t
+        self.buffer = torch.empty((t, 3), dtype=torch.uint8, pin_memory=True)
+        self.event = torch.cuda.Event()
+
+    def send(self, draw, device: torch.device) -> torch.Tensor:
+        """``draw`` into the buffer once its last launch has run, then
+        expand it on ``device``'s current stream without a
+        synchronisation; returns the (t, 3, 3) float32 colours."""
+        if not self.event.query():
+            self.event.synchronize()
+        draw(self.buffer)
+        stream = torch.cuda.current_stream(device)
+        colors = vertex_colors(self.buffer, device, stream)
+        self.event.record(stream)
+        return colors

@@ -21,8 +21,11 @@ The program measures itself in two ways:
 * ``counters`` holds host numbers, always on: ``launch.<kernel>``
   (kernel launches by each CUDA wrapper), ``kernel_build_s`` and
   ``kernel_load_s`` (``cuda_build.load``), ``model_state_s``
-  (``Model.from_state``) and ``colors_gathered`` (gathers of a textured
-  model's triangle colours, one a model). Seconds are
+  (``Model.from_state``), ``colors_gathered`` (gathers of a textured
+  model's triangle colours, one a model), and ``fallback_draws_native``
+  and ``fallback_draws_torch`` (an untextured model's colour draws, one a
+  ``fallback_colors`` span with random colours: by
+  ``native/mt_draw.cpp``, else by ``torch.randint``). Seconds are
   ``time.perf_counter()`` intervals.
   A frame's pair count is the filler's ``last_pairs``.
 """

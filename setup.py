@@ -7,7 +7,8 @@ package. Reference equivalent: the Cython build in the reference's setup.py
 to cythonize.
 
 The PyTorch + CUDA port (cython3dmodelrenderer_tpu_torch) ships its CUDA
-sources (csrc/*.cu); nvcc builds them into build/kernels/ at first launch.
+sources (csrc/*.cu); nvcc builds them into build/kernels/ at first launch,
+and g++ its C++ sources (native/*.cpp) into build/native/ at first use.
 """
 from setuptools import find_packages, setup
 
@@ -18,7 +19,8 @@ setup(
     packages=find_packages(include=["cython3dmodelrenderer_tpu*",
                                     "cython3dmodelrenderer_tpu_torch*"]),
     package_data={"cython3dmodelrenderer_tpu.native": ["*.cpp"],
-                  "cython3dmodelrenderer_tpu_torch": ["csrc/*.cu"]},
+                  "cython3dmodelrenderer_tpu_torch": ["csrc/*.cu"],
+                  "cython3dmodelrenderer_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,8 +1,9 @@
 """Kernels B1 (raster, single-view and view-batched), B2 (sort) and B4
 (counting-sort binning) on the radix-sort core, B5 (group-interleaved
 binning), F1 (the frame's front end) and the probes P1 (epi_prims) and P2
-(vpu_cal) against their plain PyTorch versions, and the sweep path on both
-backends.
+(vpu_cal) against their plain PyTorch versions, the sweep path on both
+backends, and the untextured frame's fallback colours (the pinned copy
+without a synchronisation).
 
 These need a CUDA device (and nvcc to build ``csrc/``); without one the
 ``cuda`` fixture skips them (they carry the ``cuda`` marker). On the card
@@ -662,3 +663,135 @@ def test_textured_frames_gather_colours_once(cuda):
                          model._colors[model._faces_vt.long()],
                          post="lambert_u8", light=shader.light_direction)
     assert torch.equal(filler.get_post_image(), images[0])
+
+
+def randint_colors(renderer, model):
+    """The fallback colours as ``torch.randint`` → ``.to()`` drew them:
+    int64 on the host, a pageable copy, then the expand on the card."""
+    t = model.n_triangles()
+    per_tri = torch.randint(256, (t, 3), generator=renderer.generator)
+    per_tri = per_tri.to(device=renderer.device, dtype=torch.float32)
+    return per_tri[:, None, :].expand(t, 3, 3).contiguous()
+
+
+def untextured_frame(cuda):
+    """A lit 1024² renderer and the 16k-triangle sphere without colours."""
+    model = chip_smoke.posed(Model(
+        *chip_smoke.displaced_sphere(chip_smoke.TRI_SPHERE_SEGMENTS,
+                                     chip_smoke.TRI_SPHERE_RINGS),
+        device=cuda), True)
+    assert not model.has_colors
+    filler = pt.AdvancedPixelBufferFiller(1024, 1024, fov=chip_smoke.FOV,
+                                          device=cuda)
+    return pt.Renderer(filler, pt.GuroIllumination([0, 0, 1]),
+                       pt.SimpleIterator, 1024, 1024), model
+
+
+def test_untextured_frames_keep_the_randint_colours(cuda, monkeypatch):
+    """Untextured frames at two seeds, the first queued behind a long
+    kernel, equal the frames of the ``torch.randint`` → ``.to()`` colours.
+    Three draws in a row, each queued behind a long kernel: the second and
+    the third wait for the launch that read the pinned buffer before
+    rewriting it, and each equals its ``randint`` colours."""
+    renderer, model = untextured_frame(cuda)
+    seeds = [3, 2 ** 62 + 7]
+    torch.cuda._sleep(200_000_000)
+    frames = []
+    for seed in seeds:
+        renderer.generator.manual_seed(seed)
+        frames.append(renderer.render(model).array.clone())
+    torch.cuda.synchronize()
+    monkeypatch.setattr(renderer, "_fallback_colors",
+                        lambda m, _random: randint_colors(renderer, m))
+    for seed, frame in zip(seeds, frames):
+        renderer.generator.manual_seed(seed)
+        assert torch.equal(renderer.render(model).array, frame)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    event, waited = renderer._staging.event, []
+    monkeypatch.setattr(event, "synchronize",
+                        lambda wait=event.synchronize: (waited.append(1),
+                                                        wait()))
+    got = []
+    for seed in [5, 6, 7]:
+        torch.cuda._sleep(200_000_000)
+        renderer.generator.manual_seed(seed)
+        got.append(renderer._fallback_colors(model, True))
+    assert len(waited) == 2
+    for seed, colors in zip([5, 6, 7], got):
+        renderer.generator.manual_seed(seed)
+        assert torch.equal(colors, randint_colors(renderer, model))
+
+
+def test_plain_backend_draws_the_same_colours_plainly(cuda):
+    """A ``"torch"`` filler's renderer on the card: the same colours and
+    frame as the kernel path's at one seed, with no ``csrc/colors.cu``
+    launch and no pinned buffer."""
+    renderer, model = untextured_frame(cuda)
+    plain = pt.Renderer(pt.AdvancedPixelBufferFiller(
+        1024, 1024, fov=chip_smoke.FOV, device=cuda, backend="torch"),
+        pt.GuroIllumination([0, 0, 1]), pt.SimpleIterator, 1024, 1024)
+    renderer.generator.manual_seed(9)
+    plain.generator.manual_seed(9)
+    want = renderer._fallback_colors(model, True)
+    before = counters["launch.colors"]
+    got = plain._fallback_colors(model, True)
+    assert counters["launch.colors"] == before and plain._staging is None
+    assert torch.equal(got, want)
+    renderer.generator.manual_seed(9)
+    plain.generator.manual_seed(9)
+    assert torch.equal(plain.render(model).array,
+                       renderer.render(model).array)
+
+
+def test_fallback_colours_neither_sync_nor_copy(cuda):
+    """Inside ``stage:crender.fallback_colors`` of a traced untextured
+    frame the profiler sees one kernel launch (``csrc/colors.cu``, reading
+    the pinned bytes) and no synchronisation and no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    renderer, model = untextured_frame(cuda)
+    renderer.render(model)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        renderer.render(model)
+        torch.cuda.synchronize()
+    host = [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if str(e.device_type).endswith("CPU")]
+    spans = [(a, b) for n, a, b in host
+             if n == "stage:crender.fallback_colors"]
+    assert len(spans) == 1
+    lo, hi = spans[0]
+    inside = [n for n, a, _b in host if lo <= a <= hi]
+    assert inside.count("cudaLaunchKernel") == 1
+    for name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync"):
+        assert name not in inside
+    assert any("vertex_colors_kernel" in e.name for e in prof.events())
+
+
+@pytest.mark.parametrize("t", [0, 1, 255, 256, 257, 6016, 871_824])
+def test_vertex_colors_kernel_matches_plain(cuda, t):
+    """``csrc/colors.cu`` reads (T, 3) bytes from pinned memory and equals
+    ``vertex_colors_plain`` bit for bit, one launch a call with triangles;
+    bytes outside pinned memory are refused; without a stream it runs on
+    the current one."""
+    from cython3dmodelrenderer_tpu_torch.ops.colors import (
+        vertex_colors, vertex_colors_plain)
+
+    per_tri = torch.randint(256, (t, 3), generator=torch.Generator()
+                            .manual_seed(t)).to(torch.uint8).pin_memory()
+    stream = torch.cuda.current_stream(cuda)
+    before = counters["launch.colors"]
+    got = vertex_colors(per_tri, cuda, stream)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.is_contiguous()
+    assert torch.equal(got.cpu(), vertex_colors_plain(per_tri))
+    assert counters["launch.colors"] == before + (t > 0)
+    if t:
+        with pytest.raises(RuntimeError, match="vertex_colors"):
+            vertex_colors(torch.from_numpy(per_tri.numpy().copy()), cuda,
+                          stream)
+        # the default stream is the device's current one
+        assert torch.equal(vertex_colors(per_tri, cuda).cpu(), got.cpu())
