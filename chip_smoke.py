@@ -75,10 +75,24 @@ Phases (one line each; any failure exits nonzero):
              (with torch.sort of the same pairs' tile ids, the sort step
              alone, as a yardstick) and the B3 route against their plain
              versions (the B3 route also device ms and operations a call),
-             and both routes' binning at sphere16k@1024²;
+             and both routes' binning at sphere16k@1024²; B1 launched
+             once a frame counts once more for a frame that overflowed
+             B4's capacity and ran again (bins_capacity_reruns);
+   capacity — B4 sized from the grid's capacity, the pair total read
+             after B1's launch: a 984 x 443 displaced torus (871,824
+             triangles, the Dragon's size) in 16 tilted turntable poses
+             at 1024², lit, through the filler from capacity 0: every
+             image bit-equal to the read-first frame (F1, the read, B4
+             sized exactly, B1), its pairs, stats, validate_capacity and
+             frame_provisional as before, the capacity whole sort tiles
+             at or over every total seen; the first pass re-runs, a
+             second only fits; then host-clock ms a frame of both orders
+             (render_frame and the read-first frame), each frame
+             synchronised, 8 rounds of 4 x 16 poses in turns;
 7. sweep   — the multi-view path: an 8-view turntable of sphere16k at
              1024² through Renderer.render_sequence with GuroIllumination
-             and NoIllumination at view_batch 1, 2, 4 and 8 (all on the
+             and NoIllumination at view_batch 1, 2, 4 and 8 (each once to
+             warm B4's capacity, then checked; all on the
              counting-sort route: B4 once a batch, B2 never), fast shade
              at 1 and 4; every view equal to its
              view_batch=1 render and to render_frame on the same posed
@@ -234,6 +248,13 @@ FRONTEND_COUNTS = (1, 127, 128, 129, 257, 259)
 COLORS_CHECK_SIZES = (0, 1, 255, 256, 257, 6016, 871_824)
 COLORS_TIMED = (("igor6k", 6016), ("dragon871k", 871_824))
 PCIE_BYTES_PER_S = 64e9            # PCIe 5.0 x16, one direction
+# B4's capacity: a Dragon-sized displaced torus (871,824 triangles) in a
+# 16-pose turntable at 1024², tilted, at this depth; timed rounds of 4
+# passes over the 16 poses a side, in turns
+CAPACITY_TORUS = (984, 443)
+CAPACITY_POSES = 16
+CAPACITY_TILT, CAPACITY_SHIFT = -60.0, (0.0, 0.0, 3.0)
+CAPACITY_ROUNDS, CAPACITY_PASSES = 8, 4
 
 
 class SmokeFailure(Exception):
@@ -251,10 +272,13 @@ def require(cond, msg):
 
 def launch_counts(*kernels):
     """The program's kernel launches so far (``utils.timing.counters``,
-    ``launch.<kernel>``), by kernel."""
+    ``launch.<kernel>``), by kernel; ``"reruns"`` counts the frames and
+    view batches that overflowed B4's capacity and ran B4 and B1 again
+    (``bins_capacity_reruns``)."""
     from cython3dmodelrenderer_tpu_torch.utils.timing import counters
 
-    return {k: counters[f"launch.{k}"] for k in kernels}
+    return {k: counters["bins_capacity_reruns" if k == "reruns"
+                        else f"launch.{k}"] for k in kernels}
 
 
 def launches_since(before):
@@ -1120,7 +1144,8 @@ def phase_main(scenes):
     from cython3dmodelrenderer_tpu_torch import GuroIllumination, NoIllumination
 
     illums = (("guro", GuroIllumination([0, 0, 1])), ("none", NoIllumination()))
-    before = launch_counts("raster", "binsort", "sort", "frontend", "colors")
+    before = launch_counts("raster", "binsort", "sort", "frontend", "colors",
+                           "reruns")
     results = {}
     for name, model in scenes.items():
         for iname, illum in illums:
@@ -1165,7 +1190,8 @@ def phase_main(scenes):
             and launches["sort"] == 0 and launches["frontend"] > 0,
             f"not F1, B4 + B1 alone on the main path: {launches}")
     # every frame (the lazy z getter's re-render too) runs F1 once, B1 once
-    require(launches["frontend"] == launches["raster"],
+    # and once more when it overflowed B4's capacity
+    require(launches["frontend"] + launches["reruns"] == launches["raster"],
             f"F1 was not launched once a frame: {launches}")
     require(untextured > 0 and launches["colors"] == untextured,
             f"csrc/colors.cu was not launched once an untextured frame "
@@ -1212,7 +1238,7 @@ def phase_large(scenes):
     tc = seeded_colors(model)
     deg, back = visibility_masks(tv, tn)
     screen = project_to_screen(tv, config)
-    before = launch_counts("binsort", "raster", "sort", "frontend")
+    before = launch_counts("binsort", "raster", "sort", "frontend", "reruns")
     results = {}
     for name, size in LARGE_FRAMES:
         for iname, illum in illums:
@@ -1246,11 +1272,143 @@ def phase_large(scenes):
     require(launches["binsort"] > 0 and launches["raster"] > 0
             and launches["sort"] == 0,
             f"the un-grouped path did not run on B4 + B1 alone: {launches}")
-    # F1 once a frame; rasterize() takes projected input and skips it
-    require(launches["frontend"] == launches["raster"] - 1 > 0,
+    # F1 once a frame (B1 once more on a re-run); rasterize() takes
+    # projected input and skips F1
+    require(launches["frontend"] + launches["reruns"]
+            == launches["raster"] - 1 > 0,
             f"F1 was not launched once a frame: {launches}")
     say("large", f"kernel launches on the un-grouped path: {launches}")
     return launches, results
+
+
+def read_first_frame(tv, tn, tc, config, light):
+    """The lit frame in the order frames took before B4 took its total from
+    the card: F1, the host read of its pair total, B4 sized exactly, B1.
+    Returns (image, pairs)."""
+    from cython3dmodelrenderer_tpu_torch.ops import binsort, frontend, raster
+
+    rows, tx0, cx, ty0, cy, _counts, total = frontend.frame_planes(
+        tv, tn, tc, config, 6, raster.TILE_H, raster.TILE_W)
+    total = int(total)
+    ntx, nty = SIZE // raster.TILE_W, SIZE // raster.TILE_H
+    bins = binsort.bin_sort(tx0, cx, ty0, cy, ntx, nty, total)
+    _g, img = raster.raster_tiles(rows, *bins, ntx, nty, SIZE, SIZE, 6,
+                                  config.z_init, light=light, gbuffer=False,
+                                  image=True)
+    return img, total
+
+
+def phase_capacity(light, smi):
+    """B4 sized from a capacity, the pair total read after B1's launch
+    (``raster.frame_stages``): a Dragon-sized 16-pose sequence through the
+    filler from capacity 0 re-runs where a pose's total passes the
+    capacity, and every image equals the read-first frame's bit for bit;
+    a second pass over the poses only fits. Then host-clock ms a frame of
+    both orders through the same glue (``raster.render_frame`` against
+    ``read_first_frame``, neither with the filler's statistics), in turns,
+    each frame synchronised on its image."""
+    import numpy as np
+    import torch
+
+    from cython3dmodelrenderer_tpu_torch import (AdvancedPixelBufferFiller,
+                                                 Model)
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+    from cython3dmodelrenderer_tpu_torch.utils.timing import counters
+
+    t0 = time.perf_counter()
+    v, f = displaced_torus(*CAPACITY_TORUS)
+    model = Model(v, f, device=DEVICE)
+    tri, nrm = model.vertices_by_triangles, model.normals_by_triangles
+    rng = np.random.RandomState(5)
+    angles = (360.0 * np.arange(CAPACITY_POSES) / CAPACITY_POSES
+              + rng.uniform(-11.25, 11.25, CAPACITY_POSES))
+    poses = [tuple(t.contiguous() for t in multiview._pose_triangles(
+        tri, nrm, [CAPACITY_TILT, a, 0.0], CAPACITY_SHIFT)) for a in angles]
+    tc = torch.from_numpy(rng.uniform(0, 255, f.shape[:1] + (3, 3))
+                          .astype(np.float32)).to(DEVICE)
+    config = RenderConfig(height=SIZE, width=SIZE, fov=FOV)
+    filler = AdvancedPixelBufferFiller(SIZE, SIZE, fov=FOV, device=DEVICE,
+                                       backend="cuda")
+    key = raster._capacity_key(torch.device(DEVICE, torch.cuda.current_device()),
+                               SIZE // raster.TILE_W, SIZE // raster.TILE_H)
+    raster._CAPACITY.pop(key, None)
+    say("capacity", f"{tri.shape[0]} triangles in {CAPACITY_POSES} poses, "
+        f"built in {time.perf_counter() - t0:.1f} s; capacity 0")
+
+    def counted():
+        return (counters["bins_capacity_fits"],
+                counters["bins_capacity_reruns"])
+
+    want, passes = [], []
+    for p in range(2):
+        start, caps, reruns = counted(), [], []
+        for k, (tv, tn) in enumerate(poses):
+            before = counted()[1]
+            filler.render_arrays(tv, tn, tc, post="lambert_u8", light=light)
+            img = filler.get_post_image()
+            reruns.append(counted()[1] - before)
+            caps.append(raster._CAPACITY[key])
+            if p == 0:
+                want.append(read_first_frame(tv, tn, tc, config, light))
+            ref, pairs = want[k]
+            require(torch.equal(img, ref),
+                    f"capacity pass {p} pose {k}: image != the read-first "
+                    f"frame's ({float((img != ref).any(-1).float().mean())} "
+                    "of pixels)")
+            stats = filler.get_render_stats()
+            require(stats["pairs"] == filler.last_pairs == pairs
+                    and filler.validate_capacity()
+                    and not filler.frame_provisional,
+                    f"capacity pass {p} pose {k}: stats {stats}, {pairs} pairs")
+            require(caps[-1] >= max(w[1] for w in want[:k + 1])
+                    and caps[-1] % 2048 == 0
+                    and (k == 0 or caps[-1] >= caps[-2]),
+                    f"capacity pass {p} pose {k}: capacity {caps}")
+        fits, rerun = (a - b for a, b in zip(counted(), start))
+        require(fits + rerun == CAPACITY_POSES and (rerun > 0) == (p == 0),
+                f"capacity pass {p}: {fits} fits, {rerun} re-runs")
+        passes.append({"fits": fits, "reruns": rerun,
+                       "rerun_poses": [k for k, r in enumerate(reruns) if r],
+                       "capacity": caps[-1]})
+        say("capacity", f"pass {p}: {fits} fits, {rerun} re-runs (poses "
+            f"{passes[-1]['rerun_poses']}), capacity {caps[0]} -> {caps[-1]}, "
+            f"pairs {min(w[1] for w in want)}-{max(w[1] for w in want)}; "
+            "every image == the read-first frame")
+
+    def timed(frame):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CAPACITY_PASSES):
+            for tv, tn in poses:
+                torch.cuda.synchronize(frame(tv, tn))
+        return (time.perf_counter() - t) / len(poses) / CAPACITY_PASSES * 1e3
+
+    def capacity_frame(tv, tn):         # the frame's glue, as read_first's
+        return raster.render_frame(tv, tn, tc, config, post="lambert_u8",
+                                   light=light, backend="cuda")[1].device
+
+    def read_first(tv, tn):
+        return read_first_frame(tv, tn, tc, config, light)[0].device
+
+    ms = {"capacity": [], "read_first": []}
+    fits, reruns = counted()
+    for _ in range(CAPACITY_ROUNDS):
+        ms["read_first"].append(timed(read_first))
+        ms["capacity"].append(timed(capacity_frame))
+    require(counted() == (fits + CAPACITY_ROUNDS * CAPACITY_PASSES
+                          * CAPACITY_POSES, reruns),
+            f"capacity: the timed frames re-ran ({counted()}, from "
+            f"{(fits, reruns)})")
+    med = {k: sorted(x)[len(x) // 2] for k, x in ms.items()}
+    say("capacity", f"ms a frame, host clock, {CAPACITY_PASSES} x "
+        f"{CAPACITY_POSES} poses a round, "
+        f"{CAPACITY_ROUNDS} rounds in turns: read-first {ms['read_first']} "
+        f"(median {med['read_first']:.4f}), capacity {ms['capacity']} "
+        f"(median {med['capacity']:.4f}); {smi}")
+    return {"passes": passes, "ms": ms, "median_ms": med,
+            "pairs": [w[1] for w in want], "card": smi}
 
 
 def time_frames(tag, renderer, model, n):
@@ -1456,6 +1614,9 @@ def phase_sweep(model, light):
     renderers = {iname: make_renderer(illum) for iname, illum in illums}
     kernels = ("raster", "sort", "binsort", "frontend")
     results, per_sweep = {}, {}
+    for iname, vb, fast in runs:    # warm: B4's capacity holds every batch
+        renderers[iname].render_sequence(
+            **sweep_args(renderers[iname], model, vb, fast))
     start = launch_counts(*kernels)
     for iname, vb, fast in runs:                    # the sweep path's run
         before = launch_counts(*kernels)
@@ -2159,7 +2320,8 @@ def sharded_cases(world, arrays):
     out = {"rank": rank, "device": str(dev)}
 
     def launches_of(fn):
-        before = launch_counts("raster", "sort", "binsort", "frontend")
+        before = launch_counts("raster", "sort", "binsort", "frontend",
+                               "reruns")
         res = fn()
         torch.cuda.synchronize()
         return res, launches_since(before)
@@ -2177,7 +2339,8 @@ def sharded_cases(world, arrays):
         require(got.shape == (per, SIZE, SIZE, 3) and same_bits(got, want),
                 f"sharded {tag} view_batch={vb}: its views != the unsharded "
                 "sweep's")
-        require(launches["raster"] == launches["frontend"] == per // vb,
+        require(launches["raster"] - launches["reruns"] == launches["frontend"]
+                == per // vb,
                 f"sharded {tag} view_batch={vb}: B1 / F1 launched "
                 f"{launches['raster']} / {launches['frontend']} times, not "
                 f"{per // vb}")
@@ -2490,6 +2653,7 @@ def main():
         large_launches, large_results = phase_large(large)
         large_ms, large_kt, large_bounds = phase_timing_large(
             large, large_results, large_inputs, light)
+        capacity = phase_capacity(light, smi)
         tt_model = turntable_model(DEVICE)
         sweep_launches, sweep_renderers, sweep_colors = phase_sweep(tt_model,
                                                                     light)
@@ -2510,6 +2674,7 @@ def main():
     frame_ms["sweep_ms_per_view"] = sweep_ms
     frame_ms["b5_sphere16k@1024"] = b5_ms
     frame_ms["vertex_colors"] = colors_ms
+    frame_ms["capacity"] = capacity
 
     def entry(name, source, replaces, n, err, times, bound, library=None,
               device=None):

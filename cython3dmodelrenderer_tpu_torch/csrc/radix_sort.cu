@@ -59,6 +59,16 @@
 // counts, chained by look-back too): 3 + passes launches, or 4 on the
 // one-launch path.
 //
+// B4 takes its pair total from the card: the front end's int64 total and a
+// host capacity. Buffers, the memset, the route and every grid follow the
+// capacity; the kernels read the total (live_keys) and bound their work by
+// it: a one-launch CTA past it ranks an empty tile, a onesweep CTA past it
+// returns. The sort is stable, so either route gives a total within the
+// capacity the bins of an exactly sized call, bit for bit. A total past the
+// capacity (an overflow) bins nothing: the bins come out empty, nothing is
+// written past the capacity, and the caller, which reads the total after
+// the frame, runs it again at a capacity that holds it.
+//
 // What bounds it on an H100: bytes — each pass reads and writes every key,
 // 8 B a key without values, 16 B with (B4's expansion adds 8 B a pair
 // written and the spans read once) — and, at the frame's sizes, launch
@@ -116,6 +126,14 @@ __device__ __forceinline__ unsigned match_digit(int d) {
     m &= bit ? v : ~v;
   }
   return m;
+}
+
+// The keys a call sorts: n, or with B4's device pair total, that total
+// when it fits in n (the capacity), else none (an overflow).
+__device__ __forceinline__ int live_keys(int n, const long long* total) {
+  if (total == nullptr) return n;
+  const long long t = *total;
+  return t >= 0 && t <= n ? static_cast<int>(t) : 0;
 }
 
 __device__ __forceinline__ unsigned load_volatile(const unsigned* p) {
@@ -282,16 +300,20 @@ __device__ void scatter_tile(TileSmem<kValues>& s, int m, int shift,
 // The one-launch sort: CTA b keeps tile b through every pass; passes meet
 // at grid barriers. tile_counts: gridDim.x x 256 words, no clearing needed.
 // keys_last 0: the last pass writes values only. The input may be the
-// output: every tile is loaded before the pass's first barrier.
+// output: every tile is loaded before the pass's first barrier. n keys, or
+// live_keys(n, total): a CTA past them ranks an empty tile (every CTA
+// meets the barriers).
 template <bool kValues>
 __global__ void __launch_bounds__(kTileThreads)
 sort_coop_kernel(const int* keys_in, const int* vals_in, int* keys_out,
                  int* vals_out, int* keys_tmp, int* vals_tmp, int n,
-                 int passes, int keys_last, int* tile_counts) {
+                 const long long* total, int passes, int keys_last,
+                 int* tile_counts) {
   __shared__ TileSmem<kValues> s;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int tid = threadIdx.x, tile = blockIdx.x, tiles = gridDim.x;
-  const int t0 = tile * kTileKeys, m = min(kTileKeys, n - t0);
+  n = live_keys(n, total);
+  const int t0 = tile * kTileKeys, m = max(0, min(kTileKeys, n - t0));
   const int* src_k = keys_in;
   const int* src_v = vals_in;
   for (int p = 0; p < passes; ++p) {
@@ -366,19 +388,25 @@ __device__ int look_back(unsigned* look, int tile, int stride, int own) {
 }
 
 // One onesweep pass: hist = this pass's 256 global counts, look = its
-// (tiles, 256) look-back words, ticket = its tile counter.
+// (tiles, 256) look-back words, ticket = its tile counter. n keys, or
+// live_keys(n, total): a CTA whose tile lies past them returns at once (it
+// holds the highest tickets, and a tile waits only on lower ones).
 template <bool kValues>
 __global__ void __launch_bounds__(kTileThreads)
 scatter_kernel(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
-               int* keys_out, int* vals_out, int n, int shift,
-               const int* __restrict__ hist, int* ticket, unsigned* look) {
+               int* keys_out, int* vals_out, int n, const long long* total,
+               int shift, const int* __restrict__ hist, int* ticket,
+               unsigned* look) {
   __shared__ TileSmem<kValues> s;
   __shared__ int s_tile;
   const int tid = threadIdx.x;
   if (tid == 0) s_tile = atomicAdd(ticket, 1);
-  const int start = block_exclusive_sum<kTileWarps>(hist[tid], s.part);  // synced
+  __syncthreads();
   const int tile = s_tile;
   const int t0 = tile * kTileKeys;
+  n = live_keys(n, total);
+  if (t0 >= n) return;
+  const int start = block_exclusive_sum<kTileWarps>(hist[tid], s.part);  // synced
   const int m = min(kTileKeys, n - t0);
   int local;
   const int own = rank_tile(s, keys_in, vals_in, t0, m, shift, local);
@@ -390,17 +418,20 @@ scatter_kernel(const int* __restrict__ keys_in, const int* __restrict__ vals_in,
 // B4's pairs: CTA (by ticket) expands triangles [tile * 1024, +1024) into
 // keys (tile ids) and vals (triangle ids) at offsets from a look-back scan
 // of cx * cy; counts the pairs per tile; adds the digit histograms (hist
-// null: the one-launch sort needs none).
+// null: the one-launch sort needs none). live_keys(capacity, total) pairs:
+// none on an overflow, whose bins stay empty.
 __global__ void __launch_bounds__(kExpandThreads)
 expand_kernel(const int* __restrict__ tx0, const int* __restrict__ cx,
               const int* __restrict__ ty0, const int* __restrict__ cy,
-              int n_tris, int ntx, int n_tiles, int total, int passes,
-              int* counts, int* hist, int* ticket, unsigned* look, int* keys,
-              int* vals) {
+              int n_tris, int ntx, int n_tiles, int capacity,
+              const long long* total_in, int passes, int* counts, int* hist,
+              int* ticket, unsigned* look, int* keys, int* vals) {
   __shared__ int s_off[kExpandTris];
   __shared__ int s_hist[kMaxPasses * kRadix];
   __shared__ int part[kWarp];
   __shared__ int s_tile, s_total, s_prefix;
+  const int total = live_keys(capacity, total_in);
+  if (total == 0) return;
   const int tid = threadIdx.x, lane = tid % kWarp;
   const unsigned lower = (1u << lane) - 1u;
   if (tid == 0) s_tile = atomicAdd(ticket, 1);
@@ -486,7 +517,8 @@ size_t onesweep_words(int n, int passes) {
       + static_cast<size_t>(passes) * tiles_of(n) * kRadix;
 }
 
-// The passes over n keys (values if vals_in): from keys_in/vals_in into
+// The passes over n keys (values if vals_in), or over live_keys(n, total)
+// of them in grids sized for n: from keys_in/vals_in into
 // keys_out/vals_out, through keys_tmp/vals_tmp when there are two passes or
 // more. onesweep false: the one launch, scratch = ceil(n / 2,048) x 256
 // words for the tiles' counts; true: the onesweep passes, scratch = the
@@ -495,14 +527,14 @@ size_t onesweep_words(int n, int passes) {
 template <bool kValues>
 cudaError_t sort_passes(const int* keys_in, const int* vals_in, int* keys_out,
                         int* vals_out, int* keys_tmp, int* vals_tmp, int n,
-                        int passes, int* scratch, bool onesweep, bool keys_last,
-                        cudaStream_t st) {
+                        const long long* total, int passes, int* scratch,
+                        bool onesweep, bool keys_last, cudaStream_t st) {
   const int tiles = tiles_of(n);
   if (!onesweep) {
     if (tiles > kCoopMaxTiles) return cudaErrorInvalidValue;
     int last_keys = keys_last;
     void* args[] = {&keys_in, &vals_in, &keys_out, &vals_out, &keys_tmp,
-                    &vals_tmp, &n, &passes, &last_keys, &scratch};
+                    &vals_tmp, &n, &total, &passes, &last_keys, &scratch};
     return cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(sort_coop_kernel<kValues>), dim3(tiles),
         dim3(kTileThreads), args, 0, st);
@@ -518,7 +550,7 @@ cudaError_t sort_passes(const int* keys_in, const int* vals_in, int* keys_out,
     int* dst_v = to_out ? vals_out : vals_tmp;
     const bool last = p == passes - 1;
     scatter_kernel<kValues><<<tiles, kTileThreads, 0, st>>>(
-        src_k, src_v, last && !keys_last ? nullptr : dst_k, dst_v, n,
+        src_k, src_v, last && !keys_last ? nullptr : dst_k, dst_v, n, total,
         p * kRadixBits, hist + p * kRadix, tickets + p,
         look + static_cast<size_t>(p) * tiles * kRadix);
     const cudaError_t err = cudaGetLastError();
@@ -571,25 +603,29 @@ int radix_sort_launch(const int* keys, int* out, int* tmp, int n, int bits,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(sort_passes<false>(keys, nullptr, out, nullptr, tmp,
-                                             nullptr, n, passes, scratch,
-                                             onesweep, true, st));
+                                             nullptr, n, nullptr, passes,
+                                             scratch, onesweep, true, st));
 }
 
 // B4 on `stream`: bins of the (triangle, tile) pairs of the spans
-// tx0/cx/ty0/cy (n_tris each, inside the ntx-wide grid of n_tiles tiles,
-// sum cx*cy == total). scratch: 2 * n_tiles + 2 + ceil(n_tris / 1024) +
-// ceil(n_tiles / 1024) words cleared here, then ceil(total / 2,048) x 256
-// words when total <= 131,072 (the one-launch sort), else
-// onesweep_words(total, passes) words, cleared too. Words [0, n_tiles) receive tile_starts, [n_tiles, 2
-// n_tiles) tile_counts. work: 3 * total words (the sorted keys, ping-pong
-// keys and values); pair_tri: total words, the binned triangle ids.
-// bits = ceil(log2 n_tiles) (at least 1). Returns a cudaError_t code.
+// tx0/cx/ty0/cy (n_tris each, inside the ntx-wide grid of n_tiles tiles),
+// sized for `capacity` pairs. total: null when the spans hold exactly
+// `capacity` pairs; else the device's int64 sum of cx*cy (the front end's
+// pair total), binned when it is at most `capacity`, else an overflow:
+// empty bins. scratch: 2 * n_tiles + 2 + ceil(n_tris / 1024) +
+// ceil(n_tiles / 1024) words cleared here, then ceil(capacity / 2,048) x
+// 256 words when capacity <= 131,072 (the one-launch sort), else
+// onesweep_words(capacity, passes) words, cleared too. Words [0, n_tiles)
+// receive tile_starts, [n_tiles, 2 n_tiles) tile_counts. work: 3 *
+// capacity words (the sorted keys, ping-pong keys and values); pair_tri:
+// capacity words, the binned triangle ids first. bits = ceil(log2
+// n_tiles) (at least 1). Returns a cudaError_t code.
 int binsort_launch(const int* tx0, const int* cx, const int* ty0, const int* cy,
-                   int n_tris, int ntx, int n_tiles, int total, int bits,
-                   int* scratch, int* work, int* pair_tri, int device,
-                   void* stream) {
-  if (n_tris < 0 || n_tiles < 1 || total < 0 || total > kMaxN || bits < 1
-      || bits > 31)
+                   int n_tris, int ntx, int n_tiles, const long long* total,
+                   int capacity, int bits, int* scratch, int* work,
+                   int* pair_tri, int device, void* stream) {
+  if (n_tris < 0 || n_tiles < 1 || capacity < 0 || capacity > kMaxN
+      || bits < 1 || bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -597,7 +633,7 @@ int binsort_launch(const int* tx0, const int* cx, const int* ty0, const int* cy,
   const int passes = passes_of(bits);
   const int tri_tiles = (n_tris + kExpandTris - 1) / kExpandTris;
   const int scan_tiles = (n_tiles + kScanThreads - 1) / kScanThreads;
-  const bool onesweep = total > kOneLaunchMaxKeys;
+  const bool onesweep = capacity > kOneLaunchMaxKeys;
   int* starts = scratch;
   int* counts = starts + n_tiles;
   int* ticket = counts + n_tiles;                     // the expansion's
@@ -606,20 +642,21 @@ int binsort_launch(const int* tx0, const int* cx, const int* ty0, const int* cy,
   unsigned* scan_look = reinterpret_cast<unsigned*>(scan_ticket + 1);
   int* sort_scratch = scan_ticket + 1 + scan_tiles;
   const size_t words = 2 * static_cast<size_t>(n_tiles) + 2 + tri_tiles
-      + scan_tiles + (onesweep ? onesweep_words(total, passes) : 0);
+      + scan_tiles + (onesweep ? onesweep_words(capacity, passes) : 0);
   err = cudaMemsetAsync(scratch, 0, words * sizeof(int), st);
-  if (err != cudaSuccess || total == 0 || n_tris == 0) return static_cast<int>(err);
+  if (err != cudaSuccess || capacity == 0 || n_tris == 0)
+    return static_cast<int>(err);
   // the pairs go where the first pass does not write: the output buffers
   // when the onesweep passes are even (the one launch loads every tile
   // before it writes), the ping-pong ones when odd
   int* keys_out = work;
-  int* keys_tmp = work + total;
-  int* vals_tmp = work + 2 * static_cast<size_t>(total);
+  int* keys_tmp = work + capacity;
+  int* vals_tmp = work + 2 * static_cast<size_t>(capacity);
   const bool in_out = !onesweep || passes % 2 == 0;
   int* keys0 = in_out ? keys_out : keys_tmp;
   int* vals0 = in_out ? pair_tri : vals_tmp;
   expand_kernel<<<tri_tiles, kExpandThreads, 0, st>>>(
-      tx0, cx, ty0, cy, n_tris, ntx, n_tiles, total, passes, counts,
+      tx0, cx, ty0, cy, n_tris, ntx, n_tiles, capacity, total, passes, counts,
       onesweep ? sort_scratch : nullptr, ticket, look, keys0, vals0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -628,8 +665,8 @@ int binsort_launch(const int* tx0, const int* cx, const int* ty0, const int* cy,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sort_passes<true>(
-      keys0, vals0, keys_out, pair_tri, keys_tmp, vals_tmp, total, passes,
-      sort_scratch, onesweep, false, st));
+      keys0, vals0, keys_out, pair_tri, keys_tmp, vals_tmp, capacity, total,
+      passes, sort_scratch, onesweep, false, st));
 }
 
 }  // extern "C"

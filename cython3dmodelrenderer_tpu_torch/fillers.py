@@ -17,11 +17,13 @@ render a frame through ``ops/raster.py::render_frame``; ``"ratio"``
 through the ratio-form rasterizer ``ops/raster_ref.py`` (the JAX
 ``"jnp"``), on the filler's device.
 
-Capacity: every binned frame sizes its bins exactly from its own pair
-total (one host read per frame), so no bin can overflow. The JAX package's
-capacity buckets, background demand reader and overflow re-render have no
-counterpart: ``validate_capacity`` is trivially true and no frame is ever
-provisional.
+Capacity: a binned frame sizes B4 from the largest pair total seen on its
+tile grid and reads its own total once, after the raster's launch
+(``raster.frame_stages``); a frame past that capacity runs its bins and
+raster again before ``render`` returns, so every frame's bins are whole.
+The JAX package's capacity buckets, background demand reader and
+provisional frames have no counterpart: ``validate_capacity`` is true and
+no frame is ever provisional.
 
 A post frame (``"u8"``/``"lambert_u8"``/``"fast_lambert_u8"``) on a binned
 backend writes only the uint8 image. Its G-buffer getters re-render the
@@ -217,19 +219,21 @@ class AdvancedPixelBufferFiller(PixelBufferFiller):
         not JAX's slot bucket — and ``active_tiles``, its nonempty tiles
         (one host read); both None on the ``"ratio"`` backend, as on JAX's
         jnp path. ``pair_capacity`` and ``live_group_capacity`` are None:
-        the port sizes its bins exactly per frame, so it has no capacity."""
+        the JAX package's slot buckets have no counterpart (B4's capacity
+        is internal, and a frame past it ran again before it returned)."""
         binned = self._active_tiles is not None
         return {"pairs": self.last_pairs if binned else None,
                 "active_tiles": int(self._active_tiles) if binned else None,
                 "pair_capacity": None, "live_group_capacity": None}
 
     def validate_capacity(self) -> bool:
-        """True: bins are sized exactly per frame, so no frame can overflow."""
+        """True: a frame past B4's capacity ran again before it returned,
+        so no frame's bins overflow."""
         return True
 
     @property
     def frame_provisional(self) -> bool:
-        """False: every frame is complete as dispatched (exact bins)."""
+        """False: every frame is complete when ``render`` returns."""
         return False
 
     def snapshot_buffers(self, strict: bool = False):

@@ -4,8 +4,10 @@ Both routes return ``(pair_tri, tile_starts, tile_counts)``: ``pair_tri``
 (total,) int32 holds the triangle ids of all (triangle, tile) pairs grouped
 by tile, each tile's run in ascending triangle order (the order the
 depth-tie rule needs); tile t's bin is ``pair_tri[tile_starts[t]:]
-[:tile_counts[t]]``. Sizes are exact: the caller passes the frame's pair
-total (one host read per frame).
+[:tile_counts[t]]``. The sort route is sized exactly by the pair total the
+caller read; the counting sort also takes the total as a device scalar
+with a host ``capacity`` (``bin_sort``), so a frame reads it only after
+its raster launch (``raster.frame_stages``).
 
 **Sort route** (``bin_pairs``), the part of ``cython3dmodelrenderer_tpu/
 ops/binsort_pallas.py::bin_gather_grouped`` (``:437-624``) the port needs:
@@ -35,7 +37,7 @@ raster kernel reads each tile's run directly.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -45,6 +47,8 @@ from . import sort as radix
 from .sort import sort_i32
 
 Bins = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+#: a pair total: a host int, or the front end's 0-dim int64 tensor
+Total = Union[int, torch.Tensor]
 
 #: triangles one B4 expansion CTA takes, tile counts one scan CTA takes
 #: (``csrc/radix_sort.cu``)
@@ -132,15 +136,28 @@ def _check_spans(tx0, cx, ty0, cy) -> None:
 
 
 def bin_sort_plain(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
-                   cy: torch.Tensor, ntx: int, nty: int, total: int) -> Bins:
-    """The plain version of ``bin_sort``: ``expand_pairs``, a stable sort
-    of the pairs' tile ids, ``bincount`` and an exclusive ``cumsum``."""
+                   cy: torch.Tensor, ntx: int, nty: int, total: Total,
+                   capacity: Optional[int] = None) -> Bins:
+    """The plain version of ``bin_sort``, with its ``total`` and
+    ``capacity``: ``expand_pairs``, a stable sort of the pairs' tile ids,
+    ``bincount`` and an exclusive ``cumsum``; with a capacity, ``pair_tri``
+    is zero-padded to it, and an overflow gives empty bins."""
     _check_spans(tx0, cx, ty0, cy)
+    total = int(total)
+    n_tiles, dev = ntx * nty, tx0.device
+    if capacity is not None and total > capacity:        # an overflow
+        zeros = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        return (torch.zeros(capacity, dtype=torch.int32, device=dev), zeros,
+                zeros.clone())
     tri_p, tile_p = expand_pairs(tx0, cx, ty0, cy, ntx, total)
     order = torch.sort(tile_p, stable=True).indices
-    counts = torch.bincount(tile_p.to(torch.int64), minlength=ntx * nty)
+    counts = torch.bincount(tile_p.to(torch.int64), minlength=n_tiles)
     starts = torch.cumsum(counts, 0) - counts
-    return (tri_p[order].contiguous(), starts.to(torch.int32),
+    pair_tri = tri_p[order]
+    if capacity is not None and capacity > total:
+        pair_tri = torch.cat([pair_tri, torch.zeros(
+            capacity - total, dtype=torch.int32, device=dev)])
+    return (pair_tri.contiguous(), starts.to(torch.int32),
             counts.to(torch.int32))
 
 
@@ -150,54 +167,74 @@ class BinSortPlan(NamedTuple):
     launches: int          # device operations of one call
 
 
-def bin_sort_plan(n_tris: int, n_tiles: int, total: int) -> BinSortPlan:
-    """How ``bin_sort`` sizes a call (``csrc/radix_sort.cu::
-    binsort_launch``): one scratch of tile_starts, tile_counts, the
-    expansion's ticket and look-back words (one a ``EXPAND_TRIS``
-    triangles), the starts scan's (one a ``SCAN_TILES`` tiles) and the
-    sort's scratch. Launches: the memset, then with pairs the expansion,
-    the starts scan and the sort (one launch up to
-    ``sort.ONE_LAUNCH_MAX_KEYS`` pairs, one a pass past it)."""
-    sort_plan = radix.plan(total, tile_bits(n_tiles))
+def bin_sort_plan(n_tris: int, n_tiles: int, capacity: int) -> BinSortPlan:
+    """How ``bin_sort`` sizes a call for ``capacity`` pairs (an exact
+    call's capacity is its total; ``csrc/radix_sort.cu::binsort_launch``):
+    one scratch of tile_starts, tile_counts, the expansion's ticket and
+    look-back words (one a ``EXPAND_TRIS`` triangles), the starts scan's
+    (one a ``SCAN_TILES`` tiles) and the sort's scratch. Launches: the
+    memset, then with a capacity the expansion, the starts scan and the
+    sort (one launch up to ``sort.ONE_LAUNCH_MAX_KEYS`` pairs, one a pass
+    past it)."""
+    sort_plan = radix.plan(capacity, tile_bits(n_tiles))
     words = (2 * n_tiles + 2 + -(-n_tris // EXPAND_TRIS)
              + -(-n_tiles // SCAN_TILES) + sort_plan.scratch_words)
-    if total == 0 or n_tris == 0:
+    if capacity == 0 or n_tris == 0:
         return BinSortPlan(sort_plan, words, 1)
     sort_launches = 1 if sort_plan.one_launch else sort_plan.passes
     return BinSortPlan(sort_plan, words, 3 + sort_launches)
 
 
 def bin_sort(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
-             cy: torch.Tensor, ntx: int, nty: int, total: int) -> Bins:
+             cy: torch.Tensor, ntx: int, nty: int, total: Total,
+             capacity: Optional[int] = None) -> Bins:
     """Counting-sort every triangle into the bins of the tiles it spans.
 
     ``tx0, cx, ty0, cy`` (T,) int32 tile spans inside the ``ntx x nty``
     grid (a culled triangle has a zero span); ``total`` = Σ cx·cy. Returns
-    the bins (module docstring), bit-equal to ``bin_sort_plain``. CUDA
-    tensors run kernel B4 in one C call (``bin_sort_plan``): the expansion
-    writes the pairs and counts them per tile, the radix-sort core sorts
-    their tile ids stably carrying the triangle ids, a scan gives the bin
-    starts; ``tile_starts`` and ``tile_counts`` are views of one buffer.
-    CPU tensors run ``bin_sort_plain``; any other device raises.
+    the bins (module docstring), bit-equal to ``bin_sort_plain``.
+
+    ``capacity`` None sizes the call exactly (a tensor ``total`` is read
+    first). With a capacity, ``total`` stays on the card (the front end's
+    0-dim int64 on the spans' device): the call is sized for ``capacity``
+    pairs and waits for nothing. A total within it gives
+    the exact call's bins, ``pair_tri`` holding ``capacity`` ids of which
+    the first ``total`` are binned; a larger total (an overflow) gives
+    empty bins and writes nothing past the capacity, and the caller, who
+    reads the total later, runs the call again (``raster.frame_stages``).
+
+    CUDA tensors run kernel B4 in one C call (``bin_sort_plan``): the
+    expansion writes the pairs and counts them per tile, the radix-sort
+    core sorts their tile ids stably carrying the triangle ids, a scan
+    gives the bin starts; ``tile_starts`` and ``tile_counts`` are views of
+    one buffer. CPU tensors run ``bin_sort_plain``; any other device
+    raises.
     """
     _check_spans(tx0, cx, ty0, cy)
     if tx0.device.type == "cpu":
-        return bin_sort_plain(tx0, cx, ty0, cy, ntx, nty, total)
+        return bin_sort_plain(tx0, cx, ty0, cy, ntx, nty, total, capacity)
     if tx0.device.type != "cuda":
         raise ValueError(f"bin_sort: unsupported device {tx0.device}")
     dev = tx0.device
+    if capacity is None:
+        capacity, total = int(total), None
+    elif (not isinstance(total, torch.Tensor) or total.dtype != torch.int64
+          or total.numel() != 1 or total.device != dev):
+        raise ValueError("with a capacity, total must be one int64 on the "
+                         "spans' device")
     n_tris, n_tiles = tx0.shape[0], ntx * nty
-    sort_plan = bin_sort_plan(n_tris, n_tiles, total)
+    sort_plan = bin_sort_plan(n_tris, n_tiles, capacity)
     scratch = torch.empty(sort_plan.scratch_words, dtype=torch.int32, device=dev)
-    pair_tri = torch.empty(total, dtype=torch.int32, device=dev)
+    pair_tri = torch.empty(capacity, dtype=torch.int32, device=dev)
     # the sorted keys, the ping-pong keys and values
-    work = torch.empty(3 * total, dtype=torch.int32, device=dev)
+    work = torch.empty(3 * capacity, dtype=torch.int32, device=dev)
     lib = radix._lib()
     err = lib.binsort_launch(
         *(t.data_ptr() for t in (tx0, cx, ty0, cy)), n_tris, ntx, n_tiles,
-        total, tile_bits(n_tiles), scratch.data_ptr(), work.data_ptr(),
+        total.data_ptr() if total is not None else None, capacity,
+        tile_bits(n_tiles), scratch.data_ptr(), work.data_ptr(),
         pair_tri.data_ptr(), dev.index, cuda_build.stream_handle(dev))
     cuda_build.check(lib, err, "bin_sort (csrc/radix_sort.cu)")
-    if total > 0 and n_tris > 0:
+    if capacity > 0 and n_tris > 0:
         timing.counters["launch.binsort"] += 1
     return pair_tri, scratch[:n_tiles], scratch[n_tiles:2 * n_tiles]

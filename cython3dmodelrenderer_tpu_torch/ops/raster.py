@@ -37,6 +37,11 @@ truncation then ``& 255``, Lambert in the kernel's operation order.
 inside the grouped budget to its sort route. The port's sort route
 (``binsort.bin_pairs``) gives the same bins in ~36 host dispatches where
 B4 takes one C call, so the port's render path takes no ``group``.
+``frame_stages`` sizes B4 from a capacity the host keeps (the largest
+pair total seen on the grid) and reads the total once, after B1's launch;
+a frame past the capacity runs its bins and raster again before it
+returns, so every frame is exact. The JAX package's capacity buckets and
+``p_cap``/``g_cap`` stay unported.
 """
 from __future__ import annotations
 
@@ -49,9 +54,10 @@ from .. import cuda_build
 from ..config import RenderConfig
 from ..utils import timing
 from . import binning
-from .binsort import bin_sort, bin_sort_plain
+from .binsort import Total, bin_sort, bin_sort_plain
 from .frontend import frame_planes, frame_planes_plain
 from .illumination import cast_u8, lambert_shade
+from .sort import TILE_KEYS
 
 TILE_H = 16
 TILE_W = 32
@@ -353,38 +359,75 @@ def attr_channels(lit: bool, fast: bool, gbuffer: bool) -> int:
 
 
 def route_bins(tx0: torch.Tensor, cx: torch.Tensor, ty0: torch.Tensor,
-               cy: torch.Tensor, ntx: int, nty: int, total: int,
-               backend: str, n_views: int = 1):
+               cy: torch.Tensor, ntx: int, nty: int, total: Total,
+               backend: str, n_views: int = 1,
+               capacity: Optional[int] = None):
     """The bins of ``n_views`` stacked ``ntx x nty`` frames (spans on the
     ``ntx x n_views·nty`` grid) through the counting sort (B4 or its plain
-    version). They equal the bins of ``binsort.bin_pairs`` (B2 +
-    ``searchsorted``), the route JAX's ``_stage_b`` takes for a ``group >
-    1`` batch inside its grouped budget."""
+    version; ``total`` and ``capacity`` as in ``binsort.bin_sort``). They
+    equal the bins of ``binsort.bin_pairs`` (B2 + ``searchsorted``), the
+    route JAX's ``_stage_b`` takes for a ``group > 1`` batch inside its
+    grouped budget."""
     return stage_functions(backend)[1](tx0, cx, ty0, cy, ntx, n_views * nty,
-                                       total)
+                                       total, capacity)
+
+
+#: B4's capacity by (device type, index, stream, ntx, stacked tile rows):
+#: the largest pair total a frame there has read, in whole sort tiles. It
+#: only grows, by ``frame_stages``
+_CAPACITY: dict = {}
+
+
+def _capacity_key(dev: torch.device, ntx: int, rows: int) -> tuple:
+    """Where a capacity holds: the device, its current stream (its id,
+    which needs no stream object) and the stacked tile grid."""
+    stream = (torch._C._cuda_getCurrentStream(dev.index)[0]
+              if dev.type == "cuda" else 0)
+    return dev.type, dev.index, stream, ntx, rows
 
 
 def frame_stages(planes, config: RenderConfig, n_attrs: int, backend: str,
                  light=None, gbuffer: bool = True, image: bool = False,
                  n_views: int = 1, stats: Optional[dict] = None):
-    """Pair total → bins → raster of ``n_views`` stacked views from the
+    """Bins → raster → pair total of ``n_views`` stacked views from the
     front end's outputs ``planes``; the other arguments as in
     ``raster_tiles``. Returns ``(gbuf, image, n_pairs)``. A ``stats`` dict
-    receives ``"active_tiles"``, the nonempty tiles as a device scalar."""
+    receives ``"active_tiles"``, the nonempty tiles as a device scalar.
+
+    B4 is sized from the grid's capacity (``_CAPACITY``; 0 at first) and
+    takes the total on the card, so the host launches B4 and B1 without
+    waiting; then it reads the total, the frame's one host read. A total
+    past the capacity (B4 published empty bins, B1 background) raises the
+    capacity to it, in whole ``TILE_KEYS``-key sort tiles, and runs the
+    bins and the raster again. Counters ``bins_capacity_fits`` and
+    ``bins_capacity_reruns`` count the two cases."""
     rows, tx0, cx, ty0, cy, _counts, total = planes
     h, w = config.height, config.width
     ntx, nty = -(-w // TILE_W), -(-h // TILE_H)
+    key = _capacity_key(total.device, ntx, n_views * nty)
+    capacity = _CAPACITY.get(key, 0)
+
+    def bins_and_raster(cap):
+        with timing.span("bins"):
+            bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, backend,
+                              n_views, cap)
+        if stats is not None:
+            stats["active_tiles"] = (bins[2] > 0).sum()
+        with timing.span("raster"):
+            return stage_functions(backend)[2](
+                rows, *bins, ntx, nty, h, w, n_attrs, config.z_init,
+                light=light, gbuffer=gbuffer, image=image, n_views=n_views)
+
+    gbuf, img = bins_and_raster(capacity)
     with timing.span("pair_total"):
-        total = int(total)                      # the one host read
-    with timing.span("bins"):
-        bins = route_bins(tx0, cx, ty0, cy, ntx, nty, total, backend, n_views)
-    if stats is not None:
-        stats["active_tiles"] = (bins[2] > 0).sum()
-    with timing.span("raster"):
-        gbuf, img = stage_functions(backend)[2](
-            rows, *bins, ntx, nty, h, w, n_attrs, config.z_init, light=light,
-            gbuffer=gbuffer, image=image, n_views=n_views)
-    return gbuf, img, total
+        n_pairs = int(total)                    # the one host read
+    if n_pairs <= capacity:
+        timing.counters["bins_capacity_fits"] += 1
+        return gbuf, img, n_pairs
+    timing.counters["bins_capacity_reruns"] += 1
+    capacity = _CAPACITY[key] = -(-n_pairs // TILE_KEYS) * TILE_KEYS
+    gbuf, img = bins_and_raster(capacity)
+    return gbuf, img, n_pairs
 
 
 def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
@@ -393,7 +436,7 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
                  backend: str = "torch", stats: Optional[dict] = None
                  ) -> Tuple[Optional[GBuffers], Optional[torch.Tensor], int]:
     """One frame: the front end (F1: cull, project, plane rows, spans),
-    then ``frame_stages`` (pair total → bins → raster, B1).
+    then ``frame_stages`` (bins → raster, B1 → pair total).
 
     ``post``: ``"none"`` (G-buffer only), ``"u8"`` (uint8 colour image),
     ``"lambert_u8"`` (Lambert-shaded with ``light``, the pre-negated unit
@@ -403,8 +446,8 @@ def render_frame(tri_verts: torch.Tensor, tri_norms: torch.Tensor,
     G-buffer zeros; ``raster_pallas.py:1340-1350``). ``gbuffer=True``
     also emits the G-buffer for a post frame.
     ``backend`` as in ``stage_functions``. Returns ``(gbuf, image,
-    n_pairs)``, with one host read (the pair total, which sizes the bins
-    exactly); ``stats`` as in ``frame_stages``.
+    n_pairs)``, with one host read (the pair total, after B1's launch);
+    ``stats`` as in ``frame_stages``.
     """
     if post not in POSTS:
         raise ValueError(f"unknown post {post!r}")

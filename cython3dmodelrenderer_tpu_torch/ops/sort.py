@@ -76,7 +76,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.radix_sort_launch.argtypes = [p, p, p, i, i, p, i, p]
     lib.radix_sort_launch.restype = ctypes.c_int
-    lib.binsort_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, i, p]
+    lib.binsort_launch.argtypes = [p, p, p, p, i, i, i, p, i, i, p, p, p, i,
+                                   p]
     lib.binsort_launch.restype = ctypes.c_int
     lib.radix_constants.argtypes = [p]
     lib.radix_constants.restype = None

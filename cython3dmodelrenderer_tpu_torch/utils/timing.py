@@ -16,8 +16,10 @@ The program measures itself in two ways:
   them ``fallback_colors`` (an untextured model's colours: the draw from
   the renderer's generator and the copy to the device), ``front_end``
   (F1's launch and its host preparation; in a sweep ``poses``, the host's
-  pose build, nested in it), ``pair_total`` (the frame's one host read),
-  ``bins`` (the binning route) and ``raster`` (B1).
+  pose build, nested in it), ``bins`` (the binning route), ``raster``
+  (B1) and ``pair_total`` (the frame's one host read, after B1's launch;
+  a frame that overflowed B4's capacity runs ``bins`` and ``raster``
+  again after it).
 * ``counters`` holds host numbers, always on: ``launch.<kernel>``
   (kernel launches by each CUDA wrapper), ``kernel_build_s`` and
   ``kernel_load_s`` (``cuda_build.load``), ``model_state_s``
@@ -25,8 +27,11 @@ The program measures itself in two ways:
   model's triangle colours, one a model), and ``fallback_draws_native``
   and ``fallback_draws_torch`` (an untextured model's colour draws, one a
   ``fallback_colors`` span with random colours: by
-  ``native/mt_draw.cpp``, else by ``torch.randint``). Seconds are
-  ``time.perf_counter()`` intervals.
+  ``native/mt_draw.cpp``, else by ``torch.randint``), and
+  ``bins_capacity_fits`` and ``bins_capacity_reruns`` (one of them a
+  frame or view batch, ``raster.frame_stages``: its pair total fit B4's
+  capacity, or it overflowed and ran its bins and raster again). Seconds
+  are ``time.perf_counter()`` intervals.
   A frame's pair count is the filler's ``last_pairs``.
 """
 from __future__ import annotations

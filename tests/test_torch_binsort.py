@@ -109,6 +109,33 @@ def test_bin_sort_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
         binsort.bin_sort(args[0].to(torch.int64), *args[1:])
 
 
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("slack", [0, 1, 2048, None])
+@pytest.mark.parametrize("case", ["random", "culled", "covers_all", "empty"])
+def test_bins_at_a_capacity(case, slack, backend):
+    """The counting sort at a capacity, its total a 0-dim int64 tensor as
+    F1 gives it (``"cuda"`` on CPU tensors runs B4's plain version): at the
+    total or above it, the bins of exact sizing bit for bit, ``pair_tri``
+    holding the capacity's length; below it (``slack`` None: half the
+    total), an overflow, empty bins of the same lengths."""
+    spans, ntx, nty = CASES[case]
+    tspans = [torch.from_numpy(a) for a in spans]
+    total = int((spans[1] * spans[3]).sum())
+    capacity = total // 2 if slack is None else total + slack
+    want = binsort.bin_sort_plain(*tspans, ntx, nty, total)
+    got = raster.route_bins(*tspans, ntx, nty,
+                            torch.tensor(total, dtype=torch.int64), backend,
+                            capacity=capacity)
+    assert [a.dtype for a in got] == [torch.int32] * 3
+    assert got[0].shape == (capacity,)
+    if total <= capacity:
+        assert torch.equal(got[0][:total], want[0])
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    else:
+        assert int(got[1].abs().sum()) == 0 == int(got[2].abs().sum())
+        assert got[2].shape == want[2].shape == got[1].shape
+
+
 @pytest.mark.parametrize("case", ["random", "covers_all"])
 def test_bin_slots_are_the_scalar_cursors(case):
     """B5 ranks each pair by its slot in B4's bins: bin slot j of tile t

@@ -185,16 +185,21 @@ def test_frame_backends_agree(cuda):
 
 
 def test_ungrouped_frame_backends_agree(cuda):
-    """A frame past JAX's grouped budget (65 tiles wide): the counting-sort
-    route (B4) on both backends."""
+    """A warm frame (B4's capacity holds its pairs) past JAX's grouped
+    budget (65 tiles wide): the counting-sort route (B4) on both
+    backends."""
     tris, colors, normals = random_scene(400, 12)
     cfg = RenderConfig(height=256, width=2080, fov=50)     # 65 tiles wide
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
+
+    def frame(backend):
+        return raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
+                                   light=light_direction(), backend=backend)
+
+    frame("cuda")                                       # warm
     before = (counters["launch.binsort"], counters["launch.sort"])
-    k = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
-                            light=light_direction(), backend="cuda")
-    p = raster.render_frame(*args, cfg, post="lambert_u8", gbuffer=True,
-                            light=light_direction(), backend="torch")
+    k = frame("cuda")
+    p = frame("torch")
     torch.cuda.synchronize()
     assert (counters["launch.binsort"], counters["launch.sort"]) == \
         (before[0] + 1, before[1])
@@ -205,14 +210,15 @@ def test_ungrouped_frame_backends_agree(cuda):
 
 @pytest.mark.parametrize("post", ["u8", "lambert_u8"])
 def test_frame_inside_the_grouped_budget_takes_b4(cuda, post):
-    """A frame inside JAX's grouped budget (at ``group=16``), which took the
-    sort route before: one B4 launch and no B2, bit-equal to the plain
-    backend and to B1 over ``bin_pairs``' bins on the card (the old
+    """A warm frame inside JAX's grouped budget (at ``group=16``), which
+    took the sort route before: one B4 launch and no B2, bit-equal to the
+    plain backend and to B1 over ``bin_pairs``' bins on the card (the old
     route: B2 and its glue)."""
     tris, colors, normals = random_scene(200, 21)
     cfg = RenderConfig(height=1024, width=1024, fov=60)
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
     light = light_direction()
+    raster.render_frame(*args, cfg, post=post, light=light, backend="cuda")
     before = (counters["launch.binsort"], counters["launch.sort"])
     _g, img, total = raster.render_frame(*args, cfg, post=post, light=light,
                                          backend="cuda")
@@ -238,7 +244,7 @@ def test_frame_inside_the_grouped_budget_takes_b4(cuda, post):
 
 @pytest.mark.parametrize("lit", [False, True])
 def test_view_batch_inside_the_grouped_budget_takes_b4(cuda, lit):
-    """A 2-view u8 batch through ``_render_view_batch`` inside JAX's
+    """A warm 2-view u8 batch through ``_render_view_batch`` inside JAX's
     grouped budget: one B4 launch and no B2, bit-equal to the plain
     backend and to B1 over ``bin_pairs``' bins of the stacked spans."""
     tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(300, 4))
@@ -247,6 +253,7 @@ def test_view_batch_inside_the_grouped_budget_takes_b4(cuda, lit):
     shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
     light = multiview._norm_light((0.0, 0.0, 1.0)) if lit else None
     batch = (tv, tn, tc, angles, shifts, cfg, light, False, "u8")
+    multiview._render_view_batch(*batch, "cuda")        # warm
     before = (counters["launch.binsort"], counters["launch.sort"])
     img, total = multiview._render_view_batch(*batch, "cuda")
     torch.cuda.synchronize()
@@ -328,6 +335,144 @@ def test_bin_sort_kernel_zero_and_one_pair(cuda, n_live):
     assert got[0].tolist() == [0] * n_live
 
 
+#: a word no B4 launch writes, and the canary words after each buffer
+CANARY = -0x2A2A2A2B
+CANARY_WORDS = 4096
+#: (triangles, capacity or None for the pairs rounded up to whole sort
+#: tiles plus one tile) at 1024²: ~20k pairs on the one launch, ~440k on
+#: onesweep, and ~110k pairs at a capacity past the one-launch limit
+CAPACITY_CASES = {"one_launch": (8000, None), "onesweep": (128000, None),
+                  "crossing": (30000, 200000)}
+
+
+def capacity_spans(cuda, case):
+    """(spans, total, capacity) of a ``CAPACITY_CASES`` case."""
+    n_tris, capacity = CAPACITY_CASES[case]
+    spans = synthetic_spans(cuda, n_tris, 32, 64, n_tris)
+    total = spans[-1]
+    if capacity is None:
+        capacity = -(-total // sort.TILE_KEYS) * sort.TILE_KEYS + sort.TILE_KEYS
+    return spans, total, capacity
+
+
+def bin_sort_canaried(spans, total, capacity):
+    """B4 through its C launcher as ``binsort.bin_sort`` calls it with a
+    device total, on buffers ``CANARY_WORDS`` longer than its plan, all
+    filled with ``CANARY``: (pair_tri, scratch, work, plan's scratch
+    words), after the call."""
+    tx0, cx, ty0, cy, ntx, nty = spans[:6]
+    dev, n_tiles = tx0.device, ntx * nty
+    plan = binsort.bin_sort_plan(tx0.shape[0], n_tiles, capacity)
+
+    def buf(n):
+        return torch.full((n + CANARY_WORDS,), CANARY, dtype=torch.int32,
+                          device=dev)
+
+    pair_tri, scratch, work = (buf(capacity), buf(plan.scratch_words),
+                               buf(3 * capacity))
+    total_t = torch.tensor(total, dtype=torch.int64, device=dev)
+    lib = sort._lib()
+    err = lib.binsort_launch(
+        *(t.data_ptr() for t in (tx0, cx, ty0, cy)), tx0.shape[0], ntx,
+        n_tiles, total_t.data_ptr(), capacity, binsort.tile_bits(n_tiles),
+        scratch.data_ptr(), work.data_ptr(), pair_tri.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return pair_tri, scratch, work, plan.scratch_words
+
+
+def is_canary(t):
+    return bool((t == CANARY).all())
+
+
+@pytest.mark.parametrize("case", sorted(CAPACITY_CASES))
+def test_bin_sort_kernel_at_a_capacity(cuda, case):
+    """B4 sized for a capacity above its device total equals the exactly
+    sized B4 bit for bit (pair_tri's first ``total`` ids, the starts and
+    counts) on the one launch, on onesweep and across the route limit
+    (the exact call takes the one launch, the capacity onesweep); it
+    writes no pair id past the total and no word past its buffers. With a
+    capacity the total must be an int64 on the card."""
+    spans, total, capacity = capacity_spans(cuda, case)
+    exact_plan = binsort.bin_sort_plan(spans[0].shape[0], 2048, total)
+    plan = binsort.bin_sort_plan(spans[0].shape[0], 2048, capacity)
+    assert plan.sort.one_launch == (case == "one_launch")
+    assert exact_plan.sort.one_launch == (case != "onesweep")
+    assert total < capacity and (case != "onesweep" or total > 400000)
+    want = binsort.bin_sort(*spans)
+    total_t = torch.tensor(total, dtype=torch.int64, device=cuda)
+    before = counters["launch.binsort"]
+    got = binsort.bin_sort(*spans[:6], total_t, capacity)
+    again = binsort.bin_sort(*spans[:6], total_t, capacity)
+    torch.cuda.synchronize()
+    assert counters["launch.binsort"] == before + 2
+    assert got[0].shape == (capacity,)
+    for out in (got, again):
+        assert torch.equal(out[0][:total], want[0])
+        assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+    pair_tri, scratch, work, words = bin_sort_canaried(spans, total, capacity)
+    assert torch.equal(pair_tri[:total], want[0]) and is_canary(pair_tri[total:])
+    assert is_canary(scratch[words:]) and is_canary(work[3 * capacity:])
+    assert torch.equal(scratch[:2048], want[1])
+    for bad in (total, total_t.cpu(), total_t.to(torch.int32)):
+        with pytest.raises(ValueError, match="one int64"):
+            binsort.bin_sort(*spans[:6], bad, capacity)
+
+
+@pytest.mark.parametrize("case", sorted(CAPACITY_CASES))
+def test_bin_sort_kernel_overflow_writes_nothing(cuda, case):
+    """A device total past the capacity (half the total, in whole sort
+    tiles) is an overflow: empty bins, not an error; no pair id or work
+    word is written, nor any word past the scratch's plan; B1 on those
+    bins writes the background."""
+    spans, total, _capacity = capacity_spans(cuda, case)
+    capacity = total // 2 // sort.TILE_KEYS * sort.TILE_KEYS
+    assert 0 < capacity < total
+    pair_tri, scratch, work, words = bin_sort_canaried(spans, total, capacity)
+    assert is_canary(pair_tri) and is_canary(work)
+    assert int(scratch[:2 * 2048].abs().sum()) == 0
+    assert is_canary(scratch[words:])
+    bins = binsort.bin_sort(*spans[:6], torch.tensor(total, device=cuda),
+                            capacity)
+    assert bins[0].shape == (capacity,) and int(bins[2].abs().sum()) == 0
+    rows = torch.zeros((spans[0].shape[0], binning.row_width(3)),
+                       dtype=torch.float32, device=cuda)
+    gbuf, img = raster.raster_tiles(rows, *bins, 32, 64, 1024, 1024, 3, 1e6,
+                                    image=True)
+    torch.cuda.synchronize()
+    assert int(img.abs().amax()) == 0 and bool((gbuf[1] == 1e6).all())
+
+
+def test_frames_rerun_exactly_on_the_card(cuda, monkeypatch):
+    """The CPU test's pose sequence on the kernels, from capacity 0: each
+    frame bit-identical to the plain stages sized exactly, three re-runs
+    and four fits counted, and the second pass all fits."""
+    from test_torch_raster import CAPACITY_SCALES, exact_frame
+
+    monkeypatch.setattr(raster, "_CAPACITY", {})
+    tris, colors, normals = random_scene(2000, 5)
+    tn, tc = (torch.from_numpy(a).to(cuda) for a in (normals, colors))
+    config = RenderConfig(height=128, width=160, fov=60)
+    light = light_direction()
+    start = (counters["bins_capacity_fits"], counters["bins_capacity_reruns"])
+    for sweep in range(2):
+        for scale in CAPACITY_SCALES:
+            tv = torch.from_numpy(tris).to(cuda) * torch.tensor(
+                [scale, scale, 1.0], device=cuda)
+            gbuf, img, n = raster.render_frame(
+                tv, tn, tc, config, post="lambert_u8", light=light,
+                gbuffer=True, backend="cuda")
+            (want_gbuf, want_img), _bins, total = exact_frame(tv, tn, tc,
+                                                              config, light)
+            assert n == total and torch.equal(img, want_img)
+            assert all(torch.equal(a, b) for a, b in zip(gbuf, want_gbuf))
+        assert (counters["bins_capacity_fits"] - start[0],
+                counters["bins_capacity_reruns"] - start[1]) == (
+                    (4, 3) if sweep == 0 else (11, 3))
+    assert list(raster._CAPACITY.values()) == [8192]
+
+
 def batch_inputs(cuda, h, w, n_views, t, seed, n_attrs):
     """The stacked plane rows and bins of an ``n_views`` turntable batch."""
     tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(t, seed))
@@ -380,7 +525,9 @@ def test_raster_kernel_view_batch(cuda, n_views, h, w, post):
 @pytest.mark.parametrize("fast", [False, True])
 def test_sweep_backends_agree(cuda, post, fast):
     """The sweep through the kernels equals the sweep through their plain
-    versions, and every view batch equals ``view_batch=1``."""
+    versions, and every view batch equals ``view_batch=1``; B1 launches
+    once a batch, and once more for a batch that overflowed B4's
+    capacity."""
     tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in tiny_scene(300, 4))
     cfg = RenderConfig(height=200, width=130, fov=45)
     angles = multiview.turntable_angles(4)
@@ -388,12 +535,14 @@ def test_sweep_backends_agree(cuda, post, fast):
                                               post=post, fast_shade=fast,
                                               backend="torch")
     for vb in (1, 2, 4):
-        before = counters["launch.raster"]
+        before = (counters["launch.raster"],
+                  counters["bins_capacity_reruns"])
         got = multiview.render_turntable_pallas(tv, tn, tc, angles, cfg,
                                                 post=post, fast_shade=fast,
                                                 view_batch=vb)
         torch.cuda.synchronize()
-        assert counters["launch.raster"] == before + 4 // vb
+        assert counters["launch.raster"] == before[0] + 4 // vb + (
+            counters["bins_capacity_reruns"] - before[1])
         assert torch.equal(got, plain)
 
 
@@ -629,13 +778,19 @@ def test_frontend_constants_match_the_plan(cuda, n_attrs):
 
 
 def test_frontend_render_frame_launches_once(cuda):
-    """A frame on the cuda backend launches F1 once and B1 once."""
+    """A warm frame (B4's capacity holds its pairs) on the cuda backend
+    launches F1 once and B1 once."""
     tris, colors, normals = random_scene(400, 13)
     cfg = RenderConfig(height=256, width=192, fov=50)
     args = [torch.from_numpy(a).to(cuda) for a in (tris, normals, colors)]
+
+    def frame():
+        raster.render_frame(*args, cfg, post="lambert_u8",
+                            light=light_direction(), backend="cuda")
+
+    frame()                                             # warm
     before = (counters["launch.frontend"], counters["launch.raster"])
-    raster.render_frame(*args, cfg, post="lambert_u8", light=light_direction(),
-                        backend="cuda")
+    frame()
     torch.cuda.synchronize()
     assert (counters["launch.frontend"], counters["launch.raster"]) == (
         before[0] + 1, before[1] + 1)
@@ -795,3 +950,34 @@ def test_vertex_colors_kernel_matches_plain(cuda, t):
                           stream)
         # the default stream is the device's current one
         assert torch.equal(vertex_colors(per_tri, cuda).cpu(), got.cpu())
+
+
+# Last in the file: a profiler session before
+# test_fallback_colours_neither_sync_nor_copy made that test's session miss
+# vertex_colors_kernel's device event (torch 2.11 on an H100).
+def test_the_frame_reads_its_total_after_the_raster(cuda):
+    """In a profiled warm frame the device runs one copy to the host, the
+    pair total's, and it starts after B1 (``raster_kernel``) ends: the host
+    launched B4 and B1 before its read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tris, colors, normals = random_scene(2000, 5)
+    tv, tn, tc = (torch.from_numpy(a).to(cuda) for a in (tris, normals, colors))
+    config = RenderConfig(height=128, width=160, fov=60)
+
+    def frame():
+        return raster.render_frame(tv, tn, tc, config, post="lambert_u8",
+                                   light=light_direction(), backend="cuda")
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    device = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    reads = [e for e in device if "DtoH" in e[0]]
+    b1 = [e for e in device if "raster_kernel" in e[0]]
+    assert len(reads) == 1 and len(b1) == 1, device
+    assert reads[0][1] >= b1[0][2]

@@ -214,11 +214,25 @@ def test_view_batched_counting_route(jax_out, jax_rotations):
 
 @pytest.mark.parametrize("path", ["frame", "view_batch"])
 def test_stages_run_once_through_their_modules(monkeypatch, path):
-    """A frame and a 2-view batch each call the front end, the binning and
-    the raster once, through the module attributes a tracer wraps
-    (``raster.frame_planes``, ``route_bins``, ``raster_tiles``; a batch's
-    front end inside ``multiview._stacked_planes``)."""
+    """A warm frame and a warm 2-view batch (B4's capacity holds their
+    pairs) each call the front end, the binning and the raster once,
+    through the module attributes a tracer wraps (``raster.frame_planes``,
+    ``route_bins``, ``raster_tiles``; a batch's front end inside
+    ``multiview._stacked_planes``)."""
     calls = []
+    tv, tn, tc = torch_scene(*tiny_scene(24, 9))
+    shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
+
+    def render():
+        if path == "frame":
+            return raster.render_frame(
+                tv + torch.tensor([0.0, 0.0, 1.0]), tn, tc, CONFIG,
+                post="u8", backend="cuda")[1:]
+        return multiview._render_view_batch(
+            tv, tn, tc, multiview.turntable_angles(2), shifts, CONFIG, None,
+            False, "u8", "cuda")
+
+    render()                                            # warm
 
     def count(module, name):
         fn = getattr(module, name)
@@ -232,16 +246,8 @@ def test_stages_run_once_through_their_modules(monkeypatch, path):
     for name in ("frame_planes", "route_bins", "raster_tiles"):
         count(raster, name)
     count(multiview, "_stacked_planes")
-    tv, tn, tc = torch_scene(*tiny_scene(24, 9))
-    if path == "frame":
-        _g, img, total = raster.render_frame(
-            tv + torch.tensor([0.0, 0.0, 1.0]), tn, tc, CONFIG, post="u8",
-            backend="cuda")
-    else:
-        shifts = np.broadcast_to(np.float32([0.0, 0.0, 1.0]), (2, 3))
-        img, total = multiview._render_view_batch(
-            tv, tn, tc, multiview.turntable_angles(2), shifts, CONFIG, None,
-            False, "u8", "cuda")
+    img, total = render()
+    if path == "view_batch":
         assert calls.pop(0) == "_stacked_planes"
     assert calls == ["frame_planes", "route_bins", "raster_tiles"]
     assert total > 0 and int(img.max()) > 0

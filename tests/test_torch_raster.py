@@ -198,6 +198,101 @@ def test_wrapper_routes_cpu_tensors_to_plain():
     assert counters["launch.raster"] == before      # no kernel on the CPU
 
 
+#: xy scales of a pose sequence whose pair totals grow and shrink across
+#: whole sort tiles at 128 x 160: 3245, 4371, 5802, 3796, 6675, 6283, 3245
+CAPACITY_SCALES = (0.5, 0.7, 1.0, 0.6, 2.0, 1.2, 0.5)
+
+
+def exact_frame(tv, tn, tc, config, light):
+    """((gbuf, image), bins, pairs) of a lambert_u8 frame through the plain
+    stages with B4 sized exactly by the read pair total."""
+    from cython3dmodelrenderer_tpu_torch.ops import binsort, frontend, raster
+
+    rows, tx0, cx, ty0, cy, _counts, total = frontend.frame_planes_plain(
+        tv, tn, tc, config, 6, raster.TILE_H, raster.TILE_W)
+    ntx = -(-config.width // raster.TILE_W)
+    nty = -(-config.height // raster.TILE_H)
+    bins = binsort.bin_sort_plain(tx0, cx, ty0, cy, ntx, nty, int(total))
+    out = raster.raster_tiles_plain(rows, *bins, ntx, nty, config.height,
+                                    config.width, 6, config.z_init,
+                                    light=light, gbuffer=True, image=True)
+    return out, bins, int(total)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_frames_past_the_capacity_rerun_exactly(monkeypatch, backend):
+    """From capacity 0, across poses whose pair totals grow and shrink:
+    every frame's G-buffer and image are bit-identical to exact sizing, its
+    pair count and active tiles exact; a frame past the capacity counts a
+    re-run and raises the capacity to its total in whole sort tiles, any
+    other counts a fit; the capacity never drops below the largest total."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+    from cython3dmodelrenderer_tpu_torch.utils.timing import counters
+
+    monkeypatch.setattr(raster, "_CAPACITY", {})
+    tris, colors, normals = random_scene(2000, 5)
+    tn, tc = torch.from_numpy(normals), torch.from_numpy(colors)
+    config = RenderConfig(height=128, width=160, fov=60)
+    light = light_direction()
+    capacity, largest, reruns = 0, 0, 0
+    for scale in CAPACITY_SCALES:
+        tv = torch.from_numpy(tris) * torch.tensor([scale, scale, 1.0])
+        before = (counters["bins_capacity_fits"],
+                  counters["bins_capacity_reruns"])
+        stats = {}
+        gbuf, img, n = raster.render_frame(tv, tn, tc, config,
+                                           post="lambert_u8", light=light,
+                                           gbuffer=True, backend=backend,
+                                           stats=stats)
+        (want_gbuf, want_img), bins, total = exact_frame(tv, tn, tc, config,
+                                                         light)
+        assert n == total
+        assert torch.equal(img, want_img)
+        assert all(torch.equal(a, b) for a, b in zip(gbuf, want_gbuf))
+        assert int(stats["active_tiles"]) == int((bins[2] > 0).sum())
+        rerun = total > capacity
+        reruns += rerun
+        assert (counters["bins_capacity_fits"] - before[0],
+                counters["bins_capacity_reruns"] - before[1]) == (
+                    int(not rerun), int(rerun))
+        (now,) = raster._CAPACITY.values()
+        largest = max(largest, total)
+        assert now >= largest and now >= capacity
+        assert now == (-(-total // 2048) * 2048 if rerun else capacity)
+        capacity = now
+    assert reruns == 3 and capacity == 8192
+
+
+def test_a_sweep_past_the_capacity_reruns_exactly(monkeypatch):
+    """A sweep's first view batch from capacity 0 overflows and runs
+    again: its frames equal a warm sweep's and ``view_batch=1``'s."""
+    from cython3dmodelrenderer_tpu_torch.config import RenderConfig
+    from cython3dmodelrenderer_tpu_torch.ops import raster
+    from cython3dmodelrenderer_tpu_torch.parallel import multiview
+    from cython3dmodelrenderer_tpu_torch.utils.timing import counters
+
+    monkeypatch.setattr(raster, "_CAPACITY", {})
+    tris, colors, normals = random_scene(300, 6)
+    tv, tn, tc = (torch.from_numpy(a) for a in (tris, normals, colors))
+    config = RenderConfig(height=64, width=96, fov=60)
+    angles = multiview.turntable_angles(4)
+
+    def sweep(vb):
+        return multiview.render_turntable_pallas(tv, tn, tc, angles, config,
+                                                 post="u8", view_batch=vb,
+                                                 backend="torch")
+
+    reruns = counters["bins_capacity_reruns"]
+    cold = sweep(2)
+    assert counters["bins_capacity_reruns"] > reruns
+    fits = counters["bins_capacity_fits"]
+    warm = sweep(2)
+    assert counters["bins_capacity_fits"] == fits + 2
+    assert int(cold.max()) > 0
+    assert torch.equal(cold, warm) and torch.equal(cold, sweep(1))
+
+
 def test_empty_scene_is_background():
     from cython3dmodelrenderer_tpu_torch.config import RenderConfig
     from cython3dmodelrenderer_tpu_torch.ops.raster import render_frame

@@ -13,7 +13,7 @@ from cython3dmodelrenderer_tpu_torch import cuda_build
 from cython3dmodelrenderer_tpu_torch.utils import timing
 
 SIZE = 64
-FRAME_SPANS = ["front_end", "pair_total", "bins", "raster"]
+FRAME_SPANS = ["front_end", "bins", "raster", "pair_total"]
 
 
 @pytest.fixture
@@ -82,12 +82,13 @@ def test_a_frame_nests_its_stages_in_render(cube):
 
 def test_a_sweep_nests_its_batches_in_sequence(cube):
     r = renderer(pt.NoIllumination())
+    sweep(r, cube)                         # warm: B4's capacity holds both
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         sweep(r, cube)
     spans = program_spans(prof)
     names = [s[0] for s in spans]
     assert names == ["sequence", "fallback_colors"] + 2 * [
-        "front_end", "poses", "pair_total", "bins", "raster"]
+        "front_end", "poses", "bins", "raster", "pair_total"]
     _name, lo, hi = spans[0]
     assert all(lo <= a <= b <= hi for _n, a, b in spans[1:])
     for i in (2, 7):                       # poses inside its batch's front end
